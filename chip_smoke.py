@@ -26,7 +26,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              the f32 refine to 15), recall against the float64 oracle,
              and times: kernel, plain version, one library yardstick
              (blocked ``torch.matmul`` + ``torch.topk``, timed here and
-             used nowhere in the port) and the card's bound.
+             used nowhere in the port) and the card's bound (the
+             published peaks it uses are printed on a line of their
+             own).
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -332,11 +334,9 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
         library_ms = cuda_ms(lambda: library_topk(q, c, k))
     nq, d = q.shape
     nc = c.shape[0]
-    elt = q.element_size()
-    flops = 2.0 * nq * nc * d
-    nbytes = (nq + nc) * d * elt + nq * k * 8
-    t_ops = flops / peaks[dtype] * 1e3
-    t_bytes = nbytes / peaks["bytes"] * 1e3
+    t_ops = 2.0 * nq * nc * d / peaks[dtype] * 1e3
+    t_bytes = ((nq + nc) * d * q.element_size() + nq * k * 8) \
+        / peaks["bytes"] * 1e3
     return {"name": "knn_select", "route": "cuda",
             "source": "sctools_tpu_torch/csrc/knn_select.cu",
             "replaces": "sctools_tpu/ops/pallas_knn.py:84",
@@ -346,9 +346,7 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes,
-            "peak_flops_per_s": peaks[dtype],
-            "peak_bytes_per_s": peaks["bytes"], "card": card}
+            "card": card}
 
 
 def kernels_phase(x_pca, launches: int, card: str) -> list:
@@ -359,6 +357,10 @@ def kernels_phase(x_pca, launches: int, card: str) -> list:
     from sctools_tpu_torch.ops.knn import _prep, knn_arrays, knn_numpy
 
     peak_key, peaks = peaks_for(torch.cuda.get_device_name(0))
+    emit({"phase": "bounds", "peaks": peaks,
+          "source": f"NVIDIA {peak_key} data sheet, dense rates",
+          "rule": "bound_ms = max(2*nq*nc*d / peak[dtype], "
+                  "((nq + nc)*d*elt + nq*k*8) / peak['bytes'])"})
     out = []
     n = x_pca.shape[0]
     host_pca = x_pca.cpu().numpy()
@@ -389,8 +391,6 @@ def kernels_phase(x_pca, launches: int, card: str) -> list:
             q, c, k, "cosine", oracle, launches, card, peaks,
             ids_for_recall=refined))
         del q, c, refined
-    for entry in out:
-        entry["peaks"] = f"NVIDIA {peak_key} data sheet, dense"
     return out
 
 
