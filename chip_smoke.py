@@ -16,19 +16,36 @@ Phases, each printing one JSON line, each fatal on a failed check:
              read around that run, each stage's wall time and peak
              device memory, and recall@10 ≥ 0.99 against the float64
              oracle on 4,096 sampled cells;
-3. edges   — the kNN kernel against its plain version at small shapes
+3. graph   — the main path's output (68,579 cells × 2000 genes, k=15)
+             through ``Pipeline.run`` on the card: the steps of
+             ``recipe_pipeline("graph_tail", t=3, jaccard=True)`` (RCM
+             reorder → connectivities → Jaccard → diffusion operator →
+             MAGIC → restore order), then ``embed.tsne`` (500
+             iterations).  Checks: the graph kernels' launch counts
+             around that run (matvec 3, jaccard 1, tsne_repulsion 500);
+             knn_indices and X after the restore bitwise as before the
+             reorder; jaccard bitwise its plain version; X_magic within
+             rtol 1e-5 of three plain matvec steps; matvec on permuted
+             inputs bitwise the permuted output; X_tsne finite, its
+             15-NN label purity ≥ 0.95 × the kNN graph's.  A second,
+             stage-by-stage run gives each stage's wall time and peak
+             device memory, and must repeat jaccard and X_magic bit for
+             bit;
+4. edges   — the kNN kernel against its plain version at small shapes
              that reach its corners (k = 1 and 200, d = 1 and 256,
              euclidean, self exclusion, bf16, fewer candidates than k,
-             exact ties);
-4. kernels — the kernel against its plain version on the card at the
-             main path's shape and at the configs[3] candidate width
-             (1.3M points, 65,536 queries; f32 k=15 and bf16 k=32 then
-             the f32 refine to 15), recall against the float64 oracle,
-             and times: kernel, plain version, one library yardstick
-             (blocked ``torch.matmul`` + ``torch.topk``, timed here and
-             used nowhere in the port) and the card's bound (the
-             published peaks it uses are printed on a line of their
-             own).
+             exact ties); then the graph kernels at theirs (-1 ids,
+             empty rows, repeated ids, k = 1 and 64, odd d, t-SNE dim
+             1–4);
+5. kernels — each kernel against its plain version on the card at the
+             path's shapes (kNN also at the configs[3] candidate width:
+             1.3M points, 65,536 queries; f32 k=15 and bf16 k=32 then
+             the f32 refine to 15, with recall against the float64
+             oracle), and times: kernel, plain version, one library
+             yardstick where a single PyTorch call computes the same
+             function (timed here and used nowhere in the port) and the
+             card's bound (the published peaks and the bound rules are
+             printed on a line of their own).
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -50,6 +67,14 @@ WIDE_CANDS, WIDE_QUERIES, DIM = 1_300_000, 65_536, 50
 N_COMPARE = 1024  # queries held against the plain version and the oracle
 N_RECALL = 4096  # cells of the main path held against the oracle
 PLAIN_BLOCK = 8192  # query and candidate block of the plain version here
+TSNE_ITERS = 500  # embed.tsne's default n_iter
+DEVICE = "cuda"  # where the graph phases run
+# t-SNE forces at the full shape, kernel against plain version: atol
+# TSNE_FULL_ATOL × max_i |y_i|·Σ_j w_ij² (the two sums the force is the
+# difference of).  The plain version's sums over n = 68,579 float32
+# terms carry ~sqrt(n)·eps ≈ 1.6e-5 of that scale; 2e-4 leaves room for
+# the largest of 137k such errors.
+TSNE_FULL_ATOL = 2e-4
 
 # Published peaks (NVIDIA data sheets, dense): f32 on the CUDA cores,
 # bf16 on the tensor cores, HBM bandwidth.
@@ -206,7 +231,200 @@ def main_phase(card: str):
           "genes": MAIN_GENES, "generate_s": gen_s, "run_s": run_s,
           "stages": stages, "knn_select_launches": launches,
           "recall_at_10": recall, "recall_queries": N_RECALL})
-    return x_pca, launches
+    return out, x_pca, launches
+
+
+# ----------------------------------------------------------------------
+# 3. graph tail and t-SNE on the main path's output
+# ----------------------------------------------------------------------
+
+GRAPH_LAUNCHES = {"matvec": 3, "jaccard": 1, "tsne_repulsion": TSNE_ITERS}
+
+
+def remap_rows(idx, perm):
+    """The edge list of the graph whose row i is old row ``perm[i]``:
+    rows permuted, ids renamed (-1 kept)."""
+    import torch
+
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(len(perm), device=perm.device)
+    safe = torch.where(idx < 0, 0, idx).long()
+    return torch.where(idx < 0, idx, inv[safe].to(idx.dtype))[perm]
+
+
+def purity(labels, nbr) -> float:
+    """Share of the valid, non-self neighbours that carry the row's
+    label."""
+    import torch
+
+    rows = torch.arange(len(nbr), device=nbr.device)[:, None]
+    ok = (nbr >= 0) & (nbr != rows)
+    same = labels[nbr.clamp(min=0).long()] == labels[:, None]
+    return float((same & ok).sum() / ok.sum())
+
+
+def within(a, b, rtol: float, atol: float, scale=None) -> float:
+    """Largest |a - b| after checking |a - b| <= atol + rtol·scale
+    everywhere; ``scale`` defaults to |b| (the numpy/torch allclose
+    rule).  A sum whose terms cancel is held against the sum of their
+    magnitudes instead."""
+    diff = (a - b).abs()
+    scale = b.abs() if scale is None else scale
+    bad = int((diff > atol + rtol * scale).sum())
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(bad == 0, f"{bad} values beyond atol {atol} + rtol {rtol}·|b| "
+                    f"(max |a - b| {err})")
+    return err
+
+
+def graph_phase(data, card: str) -> dict:
+    import torch
+
+    from sctools_tpu_torch import Pipeline, Transform, recipe_pipeline
+    from sctools_tpu_torch.ops import graph_kernels as GK
+    from sctools_tpu_torch.ops.knn import knn_arrays
+
+    dev = torch.device(DEVICE)
+    pipe = Pipeline(list(recipe_pipeline("graph_tail", t=3, jaccard=True))
+                    + [Transform("embed.tsne", n_iter=TSNE_ITERS)])
+    n = data.n_cells
+    idx0 = data.obsp["knn_indices"][:n].clone()
+    planes0 = (data.X.indices.clone(), data.X.data.clone())
+    wrappers = {name: getattr(GK, name) for name in GRAPH_LAUNCHES}
+
+    for w in wrappers.values():
+        w.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    out = pipe.run(data, device=dev)
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check(launches == GRAPH_LAUNCHES,
+          f"graph path launches {launches}, expected {GRAPH_LAUNCHES}")
+
+    # the restored layout is the caller's, bit for bit
+    check(torch.equal(out.obsp["knn_indices"][:n], idx0),
+          "knn_indices after restore_order differ from before the reorder")
+    check(torch.equal(out.X.indices, planes0[0])
+          and torch.equal(out.X.data, planes0[1]),
+          "X after restore_order differs from before the reorder")
+    jac = out.obsp["jaccard"][:n]
+    check(torch.equal(jac, GK.jaccard_plain(idx0)),
+          "jaccard differs from jaccard_plain on the card")
+    P = out.obsp["diffusion_weights"][:n]
+    x = out.X.to_dense().contiguous()
+    want = x
+    for _ in range(3):
+        want = GK.matvec_plain(idx0, P, want)
+    magic_err = within(out.obsm["X_magic"][:n], want, 1e-5, 1e-6)
+    del want
+    # slot-order sums: permuting the rows permutes the result exactly
+    y_nat = GK.matvec(idx0, P, x)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n)).to(dev)
+    y_perm = GK.matvec(remap_rows(idx0, perm), P[perm], x[perm])
+    check(torch.equal(y_perm, y_nat[perm]),
+          "matvec on permuted inputs is not the permuted output")
+    del y_nat, y_perm
+    emb = out.obsm["X_tsne"][:n]
+    check(tuple(emb.shape) == (n, 2) and bool(torch.isfinite(emb).all()),
+          "X_tsne is not a finite (n, 2) layout")
+    labels = out.obs["cluster_true"][:n]
+    tsne_idx, _ = knn_arrays(emb, emb, k=15, metric="euclidean",
+                             exclude_self=True)
+    pur_graph = purity(labels, idx0)
+    pur_tsne = purity(labels, tsne_idx[:n])
+    check(pur_tsne >= 0.95 * pur_graph,
+          f"t-SNE 15-NN label purity {pur_tsne} < 0.95 × the graph's "
+          f"{pur_graph}")
+
+    # stage by stage, for each stage's wall time and peak memory
+    stages = []
+    staged = data
+    for t in pipe:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        staged = t(staged, device=dev)
+        sync()
+        stages.append({"stage": t.name, "s": time.perf_counter() - t0,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    # the graph tail has no atomics: the second run repeats the first
+    # exactly (t-SNE's attraction adds with index_add_ atomics)
+    for where, key in (("obsp", "jaccard"), ("obsm", "X_magic")):
+        check(torch.equal(getattr(staged, where)[key],
+                          getattr(out, where)[key]),
+              f"{key} differs between two runs of the graph path")
+    del staged
+    emit({"phase": "graph", "card": card, "cells": n,
+          "genes": data.n_genes, "k": int(idx0.shape[1]), "run_s": run_s,
+          "stages": stages, "launches": launches,
+          "x_magic_max_abs_err": magic_err,
+          "tsne_purity": pur_tsne, "graph_purity": pur_graph})
+    return {"idx": idx0, "P": P, "x": x, "y": emb.contiguous(),
+            "launches": launches}
+
+
+def graph_edges_phase() -> None:
+    """The graph kernels against their plain versions at small shapes
+    that reach their corners: -1 ids and rows without edges, repeated
+    ids, k = 1 and 64, d = 1 and odd widths (the scalar path), t-SNE
+    dims 1–4 and partial tiles."""
+    import torch
+
+    from sctools_tpu_torch.ops import graph_kernels as GK
+
+    rng = np.random.default_rng(2)
+    cases = []
+    for n, k, d in ((1000, 15, 2000), (777, 1, 3), (500, 64, 1),
+                    (300, 7, 33), (5, 3, 8)):
+        idx = rng.integers(0, n, (n, k)).astype(np.int32)
+        idx[rng.random((n, k)) < 0.1] = -1
+        idx[::13] = -1
+        idx[::7, 0] = idx[::7, -1]
+        w = rng.random((n, k)).astype(np.float32)
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        ti, tw, tx = (torch.from_numpy(a).to(DEVICE) for a in (idx, w, x))
+        # signed terms cancel: hold each output against Σ_t |w|·|x|
+        mv_err = within(GK.matvec(ti, tw, tx), GK.matvec_plain(ti, tw, tx),
+                        1e-5, 1e-6,
+                        scale=GK.matvec_plain(ti, tw.abs(), tx.abs()))
+        check(torch.equal(GK.jaccard(ti), GK.jaccard_plain(ti)),
+              f"jaccard n={n} k={k} differs from its plain version")
+        cases.append({"kernel": "graph_matvec+graph_jaccard", "n": n,
+                      "k": k, "d": d, "matvec_max_abs_err": mv_err})
+    for n, dim in ((300, 2), (257, 1), (1000, 3), (513, 4), (1, 2)):
+        y = torch.from_numpy(
+            (rng.standard_normal((n, dim)) * 3).astype(np.float32)).to(DEVICE)
+        f, z = GK.tsne_repulsion(y, n)
+        pf, pz = GK.tsne_repulsion_plain(y, n)
+        terms = tsne_term_scale(y)
+        err = within(f, pf, 1e-5, 1e-6 * terms)
+        within(z.reshape(1), pz.reshape(1), 1e-5, 0.0)
+        cases.append({"kernel": "tsne_repulsion", "n": n, "dim": dim,
+                      "max_abs_err": err, "term_scale": terms})
+    sync()
+    emit({"phase": "graph_edges", "cases": cases})
+
+
+def tsne_term_scale(y, block: int = 2048) -> float:
+    """max_i |y_i|·Σ_j w_ij²: the size of the two sums whose difference
+    is the repulsive force, against which its float32 error is held."""
+    import torch
+
+    from sctools_tpu_torch.config import true_f32
+
+    yn2 = (y * y).sum(dim=1)
+    best = 0.0
+    for r0 in range(0, y.shape[0], block):
+        yb = y[r0:r0 + block]
+        with true_f32():
+            s = yb @ y.T
+        d2 = torch.clamp(yn2[r0:r0 + block, None] - 2.0 * s + yn2[None, :],
+                         min=0.0)
+        w = 1.0 / (1.0 + d2)
+        s2 = (w * w).sum(dim=1) - 1.0  # the self pair has w = 1
+        best = max(best, float((yb.abs() * s2[:, None]).max()))
+    return best
 
 
 # ----------------------------------------------------------------------
@@ -349,18 +567,158 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
             "card": card}
 
 
-def kernels_phase(x_pca, launches: int, card: str) -> list:
+BOUND_RULES = {
+    "knn_select": "max(2*nq*nc*d / peak[dtype], "
+                  "((nq + nc)*d*elt + nq*k*8) / peak['bytes'])",
+    "graph_matvec": "max(2*e*d / peak['float32'], "
+                    "((nx + n)*d*4 + n*k*8) / peak['bytes']); e = valid "
+                    "edges, each x row read once, y written once",
+    "graph_jaccard": "max(2*e*k*k / peak['float32'], 2*n*k*4 / "
+                     "peak['bytes']); one compare and one add per pair of "
+                     "list entries of each valid edge e (the data sheet "
+                     "lists no int32 rate; the f32 CUDA-core rate stands "
+                     "in)",
+    "tsne_repulsion": "max((4*dim + 10)*n*(n - 1) / peak['float32'], "
+                      "(2*n*dim + n)*4 / peak['bytes']); per pair: dim "
+                      "fmas (dot), 3 (d2), max, add and division (w), "
+                      "self mask, w*w, 2 sums, dim fmas (w2*y); fma = 2",
+}
+
+
+def bounds_phase() -> dict:
+    import torch
+
+    peak_key, peaks = peaks_for(torch.cuda.get_device_name(0))
+    emit({"phase": "bounds", "peaks": peaks,
+          "source": f"NVIDIA {peak_key} data sheet, dense rates",
+          "rules": {name: "bound_ms = " + rule
+                    for name, rule in BOUND_RULES.items()}})
+    return peaks
+
+
+def bound(ops: float, nbytes: float, peaks: dict, dtype="float32"):
+    """``(bound_ms, bound_by)`` of work of ``ops`` operations at the
+    ``dtype`` peak and ``nbytes`` bytes at the memory rate."""
+    t_ops = ops / peaks[dtype] * 1e3
+    t_bytes = nbytes / peaks["bytes"] * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def edge_list_csr(idx, w):
+    """The (n, k) edge list as an (n, n) CSR tensor, for the library
+    yardstick (duplicate edges summed)."""
+    import torch
+
+    n, k = idx.shape
+    rows = torch.arange(n, device=idx.device).repeat_interleave(k)
+    cols = idx.reshape(-1).long()
+    keep = cols >= 0
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  w.reshape(-1)[keep], (n, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
+    """The three graph kernels against their plain versions at the
+    graph phase's shapes, in the RCM layout the path runs them in
+    (``ms``; ``ms_natural`` in the caller's order), with times."""
+    import torch
+
+    from sctools_tpu_torch.config import true_f32
+    from sctools_tpu_torch.ops import graph as G
+    from sctools_tpu_torch.ops import graph_kernels as GK
+
+    idx, P, x, y = graph["idx"], graph["P"], graph["x"], graph["y"]
+    launches = graph["launches"]
+    n, k = idx.shape
+    d = x.shape[1]
+    perm = torch.from_numpy(G.reorder_permutation(idx)).to(idx.device)
+    r_idx = remap_rows(idx, perm)
+    r_P, r_x = P[perm].contiguous(), x[perm].contiguous()
+    layout = {"bandwidth": [G.graph_bandwidth(idx), G.graph_bandwidth(r_idx)],
+              "tile_density_256": [G.tile_density(idx),
+                                   G.tile_density(r_idx)]}
+    edges = int((idx >= 0).sum())
+    common = {"route": "cuda", "card": card,
+              "layout_natural_then_rcm": layout}
+    rows = []
+
+    got = GK.matvec(r_idx, r_P, r_x)
+    want = GK.matvec_plain(r_idx, r_P, r_x)
+    err = within(got, want, 1e-5, 1e-6)
+    csr = edge_list_csr(r_idx, r_P)
+    with true_f32():
+        lib_err = float((torch.sparse.mm(csr, r_x) - want).abs().max())
+    del got, want
+    ms = cuda_ms(lambda: GK.matvec(r_idx, r_P, r_x), warmup=False)
+    ms_nat = cuda_ms(lambda: GK.matvec(idx, P, x))
+    plain_ms = cuda_ms(lambda: GK.matvec_plain(r_idx, r_P, r_x))
+    with true_f32():
+        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, r_x))
+    bms, by = bound(2.0 * edges * d, (x.shape[0] + n) * d * 4.0 + n * k * 8.0,
+                    peaks)
+    rows.append({
+        "name": "graph_matvec",
+        "source": "sctools_tpu_torch/csrc/graph_matvec.cu",
+        "replaces": "sctools_tpu/ops/pallas_graph.py:172",
+        "shape": f"{n}x{k} edges -> x {n}x{d} float32 (MAGIC t=3)",
+        "launches": launches["matvec"], "max_abs_err": err, "ms": ms,
+        "ms_natural": ms_nat, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library": "torch.sparse.mm(CSR P, dense x)",
+        "library_max_abs_err": lib_err, "bound_ms": bms, "bound_by": by,
+        **common})
+    del csr
+
+    check(torch.equal(GK.jaccard(r_idx), GK.jaccard_plain(r_idx)),
+          "jaccard differs from jaccard_plain at the path's shape")
+    ms = cuda_ms(lambda: GK.jaccard(r_idx), warmup=False)
+    ms_nat = cuda_ms(lambda: GK.jaccard(idx))
+    plain_ms = cuda_ms(lambda: GK.jaccard_plain(r_idx))
+    bms, by = bound(2.0 * edges * k * k, 2.0 * n * k * 4, peaks)
+    rows.append({
+        "name": "graph_jaccard",
+        "source": "sctools_tpu_torch/csrc/graph_jaccard.cu",
+        "replaces": "sctools_tpu/ops/pallas_graph.py:432",
+        "shape": f"{n}x{k} int32", "launches": launches["jaccard"],
+        "max_abs_err": 0.0, "ms": ms, "ms_natural": ms_nat,
+        "plain_ms": plain_ms, "library_ms": None,
+        "library": "none: no single PyTorch call intersects neighbour "
+                   "lists per edge",
+        "bound_ms": bms, "bound_by": by, **common})
+
+    f, z = GK.tsne_repulsion(y, n)
+    pf, pz = GK.tsne_repulsion_plain(y, n)
+    terms = tsne_term_scale(y)
+    err = within(f, pf, 1e-5, TSNE_FULL_ATOL * terms)
+    within(z.reshape(1), pz.reshape(1), 1e-5, 0.0)
+    del f, pf
+    ms = cuda_ms(lambda: GK.tsne_repulsion(y, n), warmup=False)
+    plain_ms = cuda_ms(lambda: GK.tsne_repulsion_plain(y, n))
+    dim = y.shape[1]
+    bms, by = bound((4.0 * dim + 10) * n * (n - 1), (2.0 * n * dim + n) * 4,
+                    peaks)
+    rows.append({
+        "name": "tsne_repulsion",
+        "source": "sctools_tpu_torch/csrc/tsne_repulsion.cu",
+        "replaces": "sctools_tpu/ops/pallas_graph.py:537",
+        "shape": f"{n}x{dim} float32 (the final layout)",
+        "launches": launches["tsne_repulsion"], "max_abs_err": err,
+        "term_scale": terms, "z_rel_err": abs(float(z) / float(pz) - 1.0),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "library": "none: no single PyTorch call computes the Student-t "
+                   "repulsion and its normaliser",
+        "bound_ms": bms, "bound_by": by, "route": "cuda", "card": card})
+    return rows
+
+
+def kernels_phase(x_pca, launches: int, card: str, peaks: dict) -> list:
     import torch
 
     from sctools_tpu_torch import configure
     from sctools_tpu_torch.data.synthetic import gaussian_blobs
     from sctools_tpu_torch.ops.knn import _prep, knn_arrays, knn_numpy
 
-    peak_key, peaks = peaks_for(torch.cuda.get_device_name(0))
-    emit({"phase": "bounds", "peaks": peaks,
-          "source": f"NVIDIA {peak_key} data sheet, dense rates",
-          "rule": "bound_ms = max(2*nq*nc*d / peak[dtype], "
-                  "((nq + nc)*d*elt + nq*k*8) / peak['bytes'])"})
     out = []
     n = x_pca.shape[0]
     host_pca = x_pca.cpu().numpy()
@@ -403,9 +761,14 @@ def main() -> int:
     import sctools_tpu_torch  # noqa: F401  (fails alone, without the repo)
 
     card = card_phase()
-    x_pca, launches = main_phase(card)
+    out, x_pca, launches = main_phase(card)
+    graph = graph_phase(out, card)
+    del out
     edges_phase()
-    kernels = kernels_phase(x_pca, launches, card)
+    graph_edges_phase()
+    peaks = bounds_phase()
+    kernels = kernels_phase(x_pca, launches, card, peaks)
+    kernels += graph_kernels_phase(graph, card, peaks)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,18 +13,22 @@ imports), with the same dotted op names and containers:
         ("pca.randomized", {"n_components": 50}),
         ("neighbors.knn", {"k": 15, "metric": "cosine"}),
     ]).run(ds)                    # on the card; device="cpu" to test
+    out = sct.recipe_pipeline("graph_tail", t=3, jaccard=True).run(out)
+    out = sct.apply("embed.tsne", out)
     host = out.to_host()
 
-The kNN search runs through the hand-written CUDA kernel
-``csrc/knn_select.cu``, built with nvcc at its first launch.
+The kNN search, the graph tail's diffusion steps and Jaccard weights,
+and the t-SNE repulsion run through hand-written CUDA kernels
+(``csrc/*.cu``), built with nvcc at the first launch.
 """
 
 from . import data, ops
 from .config import config, configure
 from .data.dataset import CellData
 from .data.sparse import SparseCells
+from .recipes import recipe_pipeline
 from .registry import Pipeline, Transform, apply, get, names, register
 
 __all__ = ["CellData", "Pipeline", "SparseCells", "Transform", "apply",
            "config", "configure", "data", "get", "names", "ops",
-           "register"]
+           "recipe_pipeline", "register"]

@@ -9,7 +9,9 @@ over the reference's arrays through numpy:
   reduce over identical slots;
 * ``pca_omega_from_numpy`` turns the reference's PCA sketch (drawn with
   ``jax.random``, which torch cannot reproduce) into the ``omega=`` of
-  ``pca.randomized``, so both packages compute the same PCA.
+  ``pca.randomized``, so both packages compute the same PCA;
+* ``graph_from_numpy`` attaches the reference's kNN graph, so both
+  packages run the graph tail on the same edges.
 """
 
 from __future__ import annotations
@@ -61,3 +63,30 @@ def pca_omega_from_numpy(omega) -> torch.Tensor:
         raise ValueError(f"omega must be (G, L), got {omega.shape}")
     return torch.from_numpy(omega)
 
+
+def graph_from_numpy(data: CellData, knn_indices, knn_distances,
+                     **uns) -> CellData:
+    """``data`` with a kNN graph computed elsewhere (e.g. by the
+    reference's ``neighbors.knn``, as numpy): obsp ``knn_indices``
+    (rows ≥ n_cells, k) int32 with -1 padding and ``knn_distances`` of
+    the same shape float32, on the device that holds ``data.X``, and
+    ``uns`` entries such as ``knn_k=15, knn_metric="cosine"``.  Lets
+    two packages start from one identical graph: their own searches may
+    order near-ties differently."""
+    idx = np.array(knn_indices, dtype=np.int32)
+    dist = np.array(knn_distances, dtype=np.float32)
+    n = data.n_cells
+    if idx.ndim != 2 or idx.shape != dist.shape:
+        raise ValueError(
+            f"knn_indices {idx.shape} and knn_distances {dist.shape} must "
+            "be one (rows, k) shape")
+    if idx.shape[0] < n:
+        raise ValueError(f"{idx.shape[0]} rows cannot hold n_cells={n}")
+    if idx.size and (idx.min() < -1 or idx.max() >= n):
+        raise ValueError(f"neighbour ids outside -1..{n - 1}")
+    X = data.X
+    device = X.device if isinstance(X, (SparseCells, torch.Tensor)) \
+        else torch.device("cpu")
+    return data.with_obsp(
+        knn_indices=torch.from_numpy(idx).to(device),
+        knn_distances=torch.from_numpy(dist).to(device)).with_uns(**uns)

@@ -47,11 +47,25 @@ class Config:
     # CUDA tensor, its plain version on a CPU tensor.
     knn_impl: str = "auto"
 
+    # Graph-kernel implementation (matvec, jaccard, t-SNE repulsion).
+    # Only "auto" exists: the wrappers of ops/graph_kernels.py pick by
+    # the tensor's device (the CUDA kernel on the card, its plain
+    # version on the CPU); there is no dispatcher between impls.
+    graph_impl: str = "auto"
+
     def resolved_knn_impl(self) -> str:
         if self.knn_impl != "auto":
             raise ValueError(
                 f"knn_impl={self.knn_impl!r}: only 'auto' (the fused "
                 "kernel) is ported so far")
+        return "kernel"
+
+    def resolved_graph_impl(self) -> str:
+        if self.graph_impl != "auto":
+            raise ValueError(
+                f"graph_impl={self.graph_impl!r}: only 'auto' (the "
+                "graph kernels on the card, their plain versions on the "
+                "CPU) exists in this port")
         return "kernel"
 
     def matmul_torch_dtype(self) -> torch.dtype:

@@ -30,6 +30,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sct_knn_select": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
                        _I),
+    "sct_graph_matvec": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+    "sct_graph_jaccard": ([_P, _I, _I, _P, _P], _I),
+    "sct_tsne_repulsion": ([_P, _I, _I, _P, _P, _P], _I),
     "sct_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -141,6 +141,33 @@ class CellData:
             {k: fetch(v, trim=True) for k, v in self.layers.items()},
         )
 
+    def __getitem__(self, key) -> "CellData":
+        """Cell subset, AnnData-style: ``d[cells]`` or ``d[cells, :]``.
+        Selectors: a slice, a boolean mask (longer than ``n_cells`` on
+        the cell axis: per-cell tensors may carry padded rows, whose
+        entries are dropped), an int or an int array (negative ids count
+        from the end).  X, obs, obsm and every layer are gathered
+        consistently (``ops.qc.select_cells_device``); obsp is dropped.
+        The gene axis is not ported yet (ROADMAP.md Queue 1 item 2)."""
+        if isinstance(key, tuple):
+            if len(key) > 2:
+                raise IndexError("CellData supports at most 2 axes")
+            ckey = key[0]
+            gkey = key[1] if len(key) > 1 else slice(None)
+        else:
+            ckey, gkey = key, slice(None)
+        if not (isinstance(gkey, slice) and gkey == slice(None)):
+            raise NotImplementedError(
+                "gene-axis subsetting of CellData is not ported yet "
+                "(ROADMAP.md Queue 1 item 2); hvg.select(subset=True) "
+                "subsets genes")
+        cidx = _cell_index(ckey, self.n_cells)
+        if cidx is None:
+            return self
+        from ..ops.qc import select_cells_device
+
+        return select_cells_device(self, cidx)
+
     def __repr__(self):
         def ks(d):
             return ", ".join(sorted(d)) or "-"
@@ -153,3 +180,36 @@ class CellData:
             f"  obsp: {ks(self.obsp)}\n  layers: {ks(self.layers)}\n"
             f"  uns: {ks(self.uns)})"
         )
+
+
+def _cell_index(key, n: int):
+    """Cell selector → int64 id array, or None for the full-axis no-op
+    (the cell-axis rules of ``sctools_tpu/data/dataset.py:
+    _normalize_axis_key``)."""
+    if isinstance(key, slice):
+        if key == slice(None):
+            return None
+        return np.arange(*key.indices(n))
+    if isinstance(key, (int, np.integer)):
+        if not -n <= key < n:
+            raise IndexError(f"cell index {key} out of range for {n}")
+        return np.array([key % n])
+    if isinstance(key, torch.Tensor):
+        key = key.cpu().numpy()
+    arr = np.asarray(key)
+    if arr.size == 0:
+        return np.empty(0, np.int64)
+    if arr.ndim != 1:
+        raise IndexError(f"cell selector must be 1-D, got shape {arr.shape}")
+    if arr.dtype.kind == "b":
+        if len(arr) < n:
+            raise IndexError(
+                f"boolean cell mask has length {len(arr)}, expected {n}")
+        return np.nonzero(arr[:n])[0]
+    if arr.dtype.kind in "iu":
+        if arr.max() >= n or arr.min() < -n:
+            raise IndexError(f"cell indices out of range for {n}")
+        return arr.astype(np.int64) % n
+    raise TypeError(
+        f"unsupported cell selector of dtype {arr.dtype} (select cells "
+        "by slice, mask or index)")

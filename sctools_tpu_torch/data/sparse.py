@@ -132,6 +132,26 @@ class SparseCells:
                 f"dtype={self.data.dtype}, device={self.device})")
 
 
+def gather_rows_sparse(x: SparseCells, idx) -> SparseCells:
+    """Row subset of a padded-ELL matrix on its device: new row i is old
+    row ``idx[i]`` (ids in ``[0, n_cells)``).  ``rows_padded`` rounds
+    the new count up to ``config.sublane``; the padding rows are empty
+    (sentinel id, value 0).  Counterpart of the ``SparseCells`` branch
+    of ``sctools_tpu/ops/qc.py:_gather_rows_matrix``."""
+    idx = torch.as_tensor(np.asarray(idx, np.int64), device=x.device)
+    n_new = idx.shape[0]
+    rows_padded = round_up(max(n_new, 1), config.sublane)
+    gidx = torch.cat([idx, torch.full((rows_padded - n_new,),
+                                      x.rows_padded - 1, dtype=torch.int64,
+                                      device=x.device)])
+    ind = x.indices.index_select(0, gidx)
+    dat = x.data.index_select(0, gidx)
+    if rows_padded > n_new:  # the padding rows hold no entries
+        ind[n_new:] = x.sentinel
+        dat[n_new:] = 0.0
+    return SparseCells(ind, dat, n_new, x.n_genes)
+
+
 def pack_ell(indptr, col_indices, data, rows_padded, capacity, sentinel):
     """CSR arrays → padded-ELL ``(indices, values)`` numpy arrays of
     shape ``(rows_padded, capacity)``."""

@@ -1,5 +1,7 @@
 """The port's ops; importing this package registers them."""
 
-from . import hvg, knn, knn_kernel, normalize, pca, qc
+from . import (graph, graph_kernels, hvg, knn, knn_kernel, normalize, pca,
+               qc, tsne)
 
-__all__ = ["hvg", "knn", "knn_kernel", "normalize", "pca", "qc"]
+__all__ = ["graph", "graph_kernels", "hvg", "knn", "knn_kernel",
+           "normalize", "pca", "qc", "tsne"]

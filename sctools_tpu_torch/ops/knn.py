@@ -123,12 +123,18 @@ def knn(data: CellData, k: int = 15, metric: str = "cosine",
         use_rep: str = "X_pca", exclude_self: bool = False,
         refine: int = 0, device=None) -> CellData:
     """Adds obsp ``knn_indices`` and ``knn_distances`` (rows padded as
-    ``knn_arrays`` pads them), uns ``knn_k`` and ``knn_metric``."""
+    ``knn_arrays`` pads them), uns ``knn_k`` and ``knn_metric``.  The
+    graph-layout statistics of an earlier ``graph.reorder`` (measured
+    on the graph this call replaces) are dropped; its permutation
+    stays, since the row layout is unchanged."""
+    from .graph import invalidate_graph_layout_stats
+
     data = data.to_device(resolve_device(device))
     rep = _get_rep(data, use_rep)
     idx, dist = knn_arrays(rep, rep, k=k, metric=metric,
                            n_query=data.n_cells, n_cand=data.n_cells,
                            exclude_self=exclude_self, refine=refine)
+    data = invalidate_graph_layout_stats(data)
     return data.with_obsp(knn_indices=idx, knn_distances=dist).with_uns(
         knn_k=k, knn_metric=metric)
 

@@ -1,4 +1,5 @@
-"""QC transforms: ``qc.per_cell_metrics``.
+"""QC transforms: ``qc.per_cell_metrics``, and the cell subset
+``select_cells_device`` behind ``CellData.__getitem__``.
 
 Counterpart of ``sctools_tpu/ops/qc.py``: per-cell metrics are row
 reductions over the padded-ELL slots; the mito share gathers a
@@ -12,7 +13,7 @@ import torch
 
 from ..config import resolve_device
 from ..data.dataset import CellData
-from ..data.sparse import SparseCells
+from ..data.sparse import SparseCells, gather_rows_sparse
 from ..registry import register
 
 
@@ -31,6 +32,42 @@ def _sparse_X(data: CellData) -> SparseCells:
             f"the port's ops take padded-ELL SparseCells X, got "
             f"{type(data.X).__name__}; dense X is not ported yet")
     return data.X
+
+
+def _gather_rows_matrix(M, idx: np.ndarray):
+    """Row subset of an X-shaped matrix (SparseCells, scipy or a dense
+    tensor), shared by X and every layer so they cannot drift."""
+    import scipy.sparse as sp
+
+    if sp.issparse(M):
+        return M.tocsr()[idx]
+    if isinstance(M, SparseCells):
+        return gather_rows_sparse(M, idx)
+    if isinstance(M, torch.Tensor):
+        return M.index_select(0, torch.as_tensor(idx, device=M.device))
+    return np.asarray(M)[idx]
+
+
+def select_cells_device(data: CellData, idx) -> CellData:
+    """Subset a CellData to the cells in ``idx`` (int ids in
+    ``[0, n_cells)``), counterpart of ``sctools_tpu/ops/qc.py:
+    select_cells_device``.  X, obs, obsm and every layer are gathered
+    consistently on their devices (per-cell tensors that carry padded
+    rows come out trimmed); obsp is dropped, since pairwise graphs refer
+    to rows that may be gone."""
+    idx = np.asarray(idx, np.int64)
+
+    def take(v):
+        if isinstance(v, torch.Tensor):
+            return v.index_select(0, torch.as_tensor(idx, device=v.device))
+        return np.asarray(v)[idx]
+
+    return data.replace(
+        X=_gather_rows_matrix(data.X, idx),
+        obs={k: take(v) for k, v in data.obs.items()},
+        obsm={k: take(v) for k, v in data.obsm.items()}, obsp={},
+        layers={k: _gather_rows_matrix(v, idx)
+                for k, v in data.layers.items()})
 
 
 @register("qc.per_cell_metrics", fusable=True, mask_aware=True)

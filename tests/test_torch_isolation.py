@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import sctools_tpu_torch as sctt
-from sctools_tpu_torch.ops import knn_kernel
+from sctools_tpu_torch.carry import graph_from_numpy
+from sctools_tpu_torch.ops import graph_kernels, knn_kernel
 
 torch.set_num_threads(2)
 
@@ -80,6 +81,29 @@ def test_kernel_wrapper_has_no_exception_handler():
                    for n in ast.walk(tree))
 
 
+@pytest.mark.parametrize("name", ["matvec", "jaccard", "tsne_repulsion"])
+def test_graph_kernel_wrapper_has_no_exception_handler(name):
+    wrapper = getattr(graph_kernels, name)
+    tree = ast.parse(inspect.getsource(wrapper))
+    assert not any(isinstance(n, (ast.Try, ast.ExceptHandler))
+                   for n in ast.walk(tree))
+    assert wrapper.launches >= 0  # the launch counter exists
+
+
+@pytest.mark.parametrize("op", [
+    "graph.connectivities", "graph.jaccard", "graph.diffusion_operator",
+    "impute.magic", "graph.reorder", "graph.restore_order", "embed.tsne"])
+def test_graph_ops_default_to_the_card_and_raise_without_one(op):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: None resolves to it")
+    ds = sctt.data.synthetic.synthetic_counts(16, 8, seed=0)
+    ds = graph_from_numpy(
+        ds, np.tile(np.arange(3, dtype=np.int32), (16, 1)),
+        np.zeros((16, 3), np.float32), knn_k=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sctt.apply(op, ds)
+
+
 def test_wrapper_dispatches_by_device_and_counts_only_launches():
     q = torch.from_numpy(np.random.default_rng(0).normal(
         size=(20, 8)).astype(np.float32))
@@ -106,8 +130,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_registry_is_separate_from_the_reference():
     assert sctt.names() == [
-        "hvg.select", "neighbors.knn", "normalize.library_size",
-        "normalize.log1p", "pca.randomized", "qc.per_cell_metrics"]
+        "embed.tsne", "graph.connectivities", "graph.diffusion_operator",
+        "graph.jaccard", "graph.reorder", "graph.restore_order",
+        "hvg.select", "impute.magic", "neighbors.knn",
+        "normalize.library_size", "normalize.log1p", "pca.randomized",
+        "qc.per_cell_metrics"]
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     with pytest.raises(NotImplementedError):
         sctt.Pipeline(["normalize.log1p"]).run(

@@ -3,9 +3,10 @@ in interpret mode here, as tests/test_pallas_knn.py runs it) and its
 float32 refine.
 
 On the CPU the port's search is the plain version of the CUDA kernel
-(``knn_kernel.knn_select_plain``).  Pass condition: identical ids, and
-distances within atol 1e-5 under the float32 policy (two libraries'
-float32 dot products differ in the last bits) and 1e-3 under bf16
+(``knn_kernel.knn_select_plain``).  Pass condition: ids identical but
+for near-ties (below), and distances within atol 1e-5 under the
+float32 policy (two libraries' float32 dot products differ in the last
+bits) and 1e-3 under bf16
 (inputs rounded to bf16, products accumulated in float32 in a different
 order).  Euclidean results are compared as squared distances — the
 kernel's score — because the square root turns float32 noise around a
@@ -89,7 +90,7 @@ def test_plain_matches_pallas_kernel(metric, exclude_self, mm):
     # the public shape is the reference's: rows padded to 256
     assert p_idx.shape == r_idx.shape == (512, 10)
     assert (p_idx[300:] == -1).all()
-    np.testing.assert_array_equal(p_idx[:300], r_idx[:300])
+    # ids may differ only at near-ties (module docstring)
     assert_same_neighbours(p_idx[:300], p_dist[:300], r_idx[:300],
                            r_dist[:300], metric, ATOL[mm])
     if exclude_self:
