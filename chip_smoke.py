@@ -16,7 +16,10 @@ Phases, each printing one JSON line, each fatal on a failed check:
              read around that run, each stage's wall time and peak
              device memory, and recall@10 ≥ 0.99 against the float64
              oracle on 4,096 sampled cells;
-3. graph   — the main path's output (68,579 cells × 2000 genes, k=15)
+3. binned  — ``neighbors.knn`` (k=15) on the main path's output under
+             ``knn_impl="pallas_binned"`` (1024 bins): knn_binned
+             launched once and knn_select never, recall@10 ≥ 0.98;
+4. graph   — the main path's output (68,579 cells × 2000 genes, k=15)
              through ``Pipeline.run`` on the card: the steps of
              ``recipe_pipeline("graph_tail", t=3, jaccard=True)`` (RCM
              reorder → connectivities → Jaccard → diffusion operator →
@@ -31,17 +34,28 @@ Phases, each printing one JSON line, each fatal on a failed check:
              stage-by-stage run gives each stage's wall time and peak
              device memory, and must repeat jaccard and X_magic bit for
              bit;
-4. edges   — the kNN kernel against its plain version at small shapes
-             that reach its corners (k = 1 and 200, d = 1 and 256,
-             euclidean, self exclusion, bf16, fewer candidates than k,
-             exact ties); then the graph kernels at theirs (-1 ids,
-             empty rows, repeated ids, k = 1 and 64, odd d, t-SNE dim
-             1–4);
-5. kernels — each kernel against its plain version on the card at the
+5. metacells — ``metacells.seacells`` at its defaults (914 metacells,
+             50 rounds) on the main path's graph, then
+             ``metacells.aggregate`` of the raw counts: matvec 151 and
+             rmatvec 150 launches, A and B column-stochastic, purity
+             ≥ 0.9 × the kNN graph's, counts conserved, rmatvec bitwise
+             repeatable;
+6. palantir — ``embed.spectral`` (matvec 61) then
+             ``palantir.run(root=0)`` (rmatvec 100, one matvec per fate
+             iteration): pseudotime in [0, 1], fate rows summing to 1,
+             finite entropy, at least one terminal state;
+7. edges   — the kNN kernels against their plain versions at small
+             shapes that reach their corners (k = 1 to 256, d = 1 and
+             256, euclidean, self exclusion, bf16, fewer candidates than
+             k or than bins, n_bins 128 to 1024, exact ties); then the
+             graph kernels at theirs (-1 ids, empty rows and
+             destinations, repeated ids, a hub of 5,000 incoming edges,
+             rectangular rmatvec, k = 1 and 64, odd d, t-SNE dim 1–4);
+8. kernels — each kernel against its plain version on the card at the
              path's shapes (kNN also at the configs[3] candidate width:
-             1.3M points, 65,536 queries; f32 k=15 and bf16 k=32 then
-             the f32 refine to 15, with recall against the float64
-             oracle), and times: kernel, plain version, one library
+             1.3M points, 65,536 queries; f32 k=15, binned k=15 and
+             bf16 k=32 then the f32 refine to 15, with recall against
+             the float64 oracle), and times: kernel, plain version, one library
              yardstick where a single PyTorch call computes the same
              function (timed here and used nowhere in the port) and the
              card's bound (the published peaks and the bound rules are
@@ -193,20 +207,14 @@ def main_phase(card: str):
     check(launches > 0, "the main path's kNN launched no knn_select kernel")
 
     # stage by stage, for each stage's wall time and peak memory
-    stages = []
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     data = ds.to_device(dev)
     sync()
-    stages.append({"stage": "to_device", "s": time.perf_counter() - t0,
-                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
-    for t in pipe:
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        data = t(data, device=dev)
-        sync()
-        stages.append({"stage": t.name, "s": time.perf_counter() - t0,
-                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    stages = [{"stage": "to_device", "s": time.perf_counter() - t0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}]
+    data, more = staged(pipe, data, dev)
+    stages += more
     del data
 
     n = out.n_cells
@@ -231,11 +239,213 @@ def main_phase(card: str):
           "genes": MAIN_GENES, "generate_s": gen_s, "run_s": run_s,
           "stages": stages, "knn_select_launches": launches,
           "recall_at_10": recall, "recall_queries": N_RECALL})
-    return out, x_pca, launches
+    return {"raw": ds, "out": out, "x_pca": x_pca, "launches": launches,
+            "sample": sample, "oracle": oracle}
+
+
+def staged(steps, data, dev) -> tuple:
+    """Run ``steps`` (Transforms) one by one on ``dev``: the output and
+    each stage's wall time and peak device memory."""
+    import torch
+
+    stages = []
+    for t in steps:
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        data = t(data, device=dev)
+        sync()
+        stages.append({"stage": t.name, "s": time.perf_counter() - t0,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return data, stages
 
 
 # ----------------------------------------------------------------------
-# 3. graph tail and t-SNE on the main path's output
+# 3. neighbors.knn through the binned merge
+# ----------------------------------------------------------------------
+
+
+def binned_phase(main: dict, card: str) -> int:
+    """``neighbors.knn`` (k=15) on the main path's output under
+    ``knn_impl="pallas_binned"`` (1024 bins): the binned kernel launched
+    once and the exact one never, recall@10 ≥ 0.98 against the float64
+    oracle on the main phase's sampled cells."""
+    import torch
+
+    from sctools_tpu_torch import Transform, configure
+    from sctools_tpu_torch.ops.knn import recall_at_k
+    from sctools_tpu_torch.ops.knn_kernel import knn_binned, knn_select
+
+    dev = torch.device(DEVICE)
+    data = main["out"]
+    n = data.n_cells
+    knn_binned.launches = knn_select.launches = 0
+    with configure(knn_impl="pallas_binned"):
+        out, stages = staged([Transform("neighbors.knn", k=15)], data, dev)
+    launches = {"knn_binned": knn_binned.launches,
+                "knn_select": knn_select.launches}
+    check(launches == {"knn_binned": 1, "knn_select": 0},
+          f"binned neighbors.knn launches {launches}")
+    idx = out.obsp["knn_indices"][:n].cpu().numpy()
+    dist = out.obsp["knn_distances"][:n].cpu().numpy()
+    check(idx.shape == (n, 15) and (idx >= 0).all() and (idx < n).all(),
+          "binned kNN ids out of range")
+    check(np.isfinite(dist).all() and (np.diff(dist, axis=1) >= 0).all(),
+          "binned kNN distances not finite or not sorted")
+    recall = recall_at_k(idx[main["sample"]], main["oracle"], k=10)
+    check(recall >= 0.98, f"binned recall@10 {recall} < 0.98")
+    exact = data.obsp["knn_indices"][:n].cpu().numpy()
+    emit({"phase": "binned", "card": card, "cells": n, "k": 15,
+          "n_bins": 1024, "stages": stages, "launches": launches,
+          "recall_at_10": recall, "recall_queries": len(main["sample"]),
+          "ids_equal_to_exact": float((idx == exact).mean())})
+    return launches["knn_binned"]
+
+
+# ----------------------------------------------------------------------
+# 5-6. metacells and Palantir on the main path's graph
+# ----------------------------------------------------------------------
+
+
+def label_purity(labels, true) -> float:
+    """Mean over the groups of ``labels`` of the share of their largest
+    ``true`` class."""
+    import torch
+
+    labels, true = labels.long(), true.long()
+    m, c = int(labels.max()) + 1, int(true.max()) + 1
+    tab = torch.zeros((m, c), device=labels.device).index_put_(
+        (labels, true), torch.ones_like(labels, dtype=torch.float32),
+        accumulate=True)
+    size = tab.sum(dim=1)
+    return float((tab.max(dim=1).values[size > 0] / size[size > 0]).mean())
+
+
+def metacells_phase(main: dict, card: str) -> dict:
+    """``metacells.seacells`` at its defaults (n/75 = 914 metacells, 50
+    rounds) on the main path's graph, then ``metacells.aggregate`` of the
+    raw 68,579 × 32,738 counts by those labels.  Checks: matvec 151 and
+    rmatvec 150 launches, A and B column-stochastic within 1e-4,
+    purity against the synthetic clusters ≥ 0.9 × the kNN graph's
+    (a metacell pools neighbours of neighbours, so it cannot be much
+    purer than the graph it is built on, and the synthetic clusters
+    overlap), counts conserved in
+    float64, sizes summing to n, rmatvec bitwise repeatable at this
+    shape."""
+    import torch
+
+    from sctools_tpu_torch import Transform
+    from sctools_tpu_torch.ops import graph_kernels as GK
+    from sctools_tpu_torch.ops.metacells import _sym_kernel
+
+    dev = torch.device(DEVICE)
+    data = main["out"]
+    n = data.n_cells
+    GK.matvec.launches = GK.rmatvec.launches = 0
+    out, stages = staged([Transform("metacells.seacells")], data, dev)
+    launches = {"matvec": GK.matvec.launches,
+                "rmatvec": GK.rmatvec.launches}
+    check(launches == {"matvec": 151, "rmatvec": 150},
+          f"seacells launches {launches}, expected matvec 151 and "
+          "rmatvec 150")
+    A, B = out.uns["seacells_A"], out.uns["seacells_B"]
+    m = A.shape[0]
+    check(tuple(A.shape) == (m, n) and tuple(B.shape) == (n, m)
+          and m == round(n / 75), f"A {tuple(A.shape)}, B {tuple(B.shape)}")
+    col_err = max(float((A.sum(dim=0) - 1).abs().max()),
+                  float((B.sum(dim=0) - 1).abs().max()))
+    check(col_err <= 1e-4, f"A or B columns sum to 1 ± {col_err}")
+    labels = out.obs["metacell"][:n]
+    _, idx, w = _sym_kernel(out, device=dev)
+    pur = label_purity(labels, out.obs["cluster_true"][:n])
+    pur_graph = purity(out.obs["cluster_true"][:n], idx)
+    check(pur >= 0.9 * pur_graph,
+          f"metacell purity {pur} < 0.9 × the kNN graph's {pur_graph}")
+
+    raw = main["raw"].with_obs(metacell=labels.cpu().numpy())
+    raw = raw.to_device(dev)
+    agg, agg_stages = staged([Transform("metacells.aggregate")], raw, dev)
+    total = float(raw.X.data.double().sum())
+    got = float(agg.uns["metacell_counts"].double().sum())
+    check(got == total, f"aggregated counts {got} != the raw total {total}")
+    sizes = agg.uns["metacell_sizes"]
+    check(float(sizes.sum()) == n, f"metacell sizes sum to {sizes.sum()}")
+    del raw, agg
+
+    x = GK.matvec(idx, w, B)  # C = K·B, the rmatvec input of the path
+    order = GK.rmatvec_order(idx, n)
+    y1 = GK.rmatvec(idx, w, x, n, order=order)
+    check(torch.equal(y1, GK.rmatvec(idx, w, x, n, order=order)),
+          "rmatvec is not bitwise repeatable at the path's shape")
+    order_ms = cuda_ms(lambda: GK.rmatvec_order(idx, n))
+    emit({"phase": "metacells", "card": card, "cells": n, "metacells": m,
+          "stages": stages + agg_stages, "launches": launches,
+          "column_sum_max_err": col_err, "purity": pur,
+          "knn_graph_purity": pur_graph,
+          "counts_total": total, "rmatvec_order_ms": order_ms})
+    return {"idx": idx, "w": w, "x": x, "order_ms": order_ms,
+            "launches": launches["rmatvec"]}
+
+
+def palantir_phase(main: dict, card: str) -> dict:
+    """``embed.spectral`` then ``palantir.run(root=0)`` on the main
+    path's graph.  The ten synthetic clusters are disconnected, so the
+    shortest path reruns with 4× the rounds and warns about the cells
+    of the other clusters.  Checks: spectral matvec 61 launches;
+    Palantir rmatvec 100 and one matvec per fate iteration; pseudotime
+    finite in [0, 1], fate rows summing to 1 within 1e-5, entropy finite
+    and ≥ -1e-6 (a fate share may round an ulp above 1), at least one
+    terminal state."""
+    import warnings
+
+    import torch
+
+    from sctools_tpu_torch import Transform
+    from sctools_tpu_torch.ops import graph_kernels as GK
+
+    dev = torch.device(DEVICE)
+    data = main["out"]
+    n = data.n_cells
+    GK.matvec.launches = GK.rmatvec.launches = 0
+    spec, stages = staged([Transform("embed.spectral")], data, dev)
+    spectral_matvec = GK.matvec.launches
+    check(spectral_matvec == 61 and GK.rmatvec.launches == 0,
+          f"embed.spectral launched matvec {spectral_matvec}, rmatvec "
+          f"{GK.rmatvec.launches}; expected 61 and 0")
+    GK.matvec.launches = GK.rmatvec.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out, pal_stages = staged([Transform("palantir.run", root=0)], spec,
+                                 dev)
+    launches = {"spectral_matvec": spectral_matvec,
+                "rmatvec": GK.rmatvec.launches,
+                "fate_matvec": GK.matvec.launches}
+    check(launches["rmatvec"] == 100 and launches["fate_matvec"] >= 1,
+          f"palantir.run launches {launches}")
+    pt = out.obs["palantir_pseudotime"][:n]
+    check(bool(torch.isfinite(pt).all()) and float(pt.min()) >= 0.0
+          and float(pt.max()) <= 1.0, "pseudotime not finite in [0, 1]")
+    fate = out.obsm["palantir_fate_probs"][:n]
+    row_err = float((fate.sum(dim=1) - 1).abs().max())
+    check(row_err <= 1e-5, f"fate rows sum to 1 ± {row_err}")
+    ent = out.obs["palantir_entropy"][:n]
+    check(bool(torch.isfinite(ent).all()) and float(ent.min()) >= -1e-6,
+          "entropy not finite and non-negative")
+    terms = out.uns["palantir_terminal_states"]
+    check(len(terms) >= 1, "no terminal state")
+    emit({"phase": "palantir", "card": card, "cells": n,
+          "stages": stages + pal_stages, "launches": launches,
+          "terminal_states": len(terms),
+          "unreachable_warning": [str(w.message) for w in caught
+                                  if "unreachable" in str(w.message)],
+          "fate_row_sum_max_err": row_err,
+          "reached": int((pt < 1).sum()), "evals": [
+              float(v) for v in spec.uns["diffmap_evals"][:5]]})
+    return {"launches": launches["rmatvec"]}
+
+
+# ----------------------------------------------------------------------
+# 4. graph tail and t-SNE on the main path's output
 # ----------------------------------------------------------------------
 
 GRAPH_LAUNCHES = {"matvec": 3, "jaccard": 1, "tsne_repulsion": TSNE_ITERS}
@@ -339,22 +549,14 @@ def graph_phase(data, card: str) -> dict:
           f"{pur_graph}")
 
     # stage by stage, for each stage's wall time and peak memory
-    stages = []
-    staged = data
-    for t in pipe:
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        staged = t(staged, device=dev)
-        sync()
-        stages.append({"stage": t.name, "s": time.perf_counter() - t0,
-                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    again, stages = staged(pipe, data, dev)
     # the graph tail has no atomics: the second run repeats the first
     # exactly (t-SNE's attraction adds with index_add_ atomics)
     for where, key in (("obsp", "jaccard"), ("obsm", "X_magic")):
-        check(torch.equal(getattr(staged, where)[key],
+        check(torch.equal(getattr(again, where)[key],
                           getattr(out, where)[key]),
               f"{key} differs between two runs of the graph path")
-    del staged
+    del again
     emit({"phase": "graph", "card": card, "cells": n,
           "genes": data.n_genes, "k": int(idx0.shape[1]), "run_s": run_s,
           "stages": stages, "launches": launches,
@@ -392,6 +594,30 @@ def graph_edges_phase() -> None:
               f"jaccard n={n} k={k} differs from its plain version")
         cases.append({"kernel": "graph_matvec+graph_jaccard", "n": n,
                       "k": k, "d": d, "matvec_max_abs_err": mv_err})
+    # rmatvec: -1 ids, destinations without edges (ids confined to the
+    # first rows), a hub with >= 5,000 incoming edges, d = 1, 3, 33 and
+    # 914, and rectangular n (more and fewer outputs than rows; ids >= n
+    # add nothing)
+    for rows, k, d, n_out in ((3000, 15, 914, 3000), (6000, 15, 1, 6000),
+                              (777, 4, 3, 1000), (2000, 9, 33, 1500),
+                              (1000, 6, 5, 300), (5, 3, 8, 5)):
+        idx = rng.integers(0, max(1, rows // 2), (rows, k)).astype(np.int32)
+        idx[rng.random((rows, k)) < 0.1] = -1
+        idx[::13] = -1
+        idx[:5000:, 0] = n_out - 1  # the hub: the last destination
+        w = rng.random((rows, k)).astype(np.float32)
+        x = rng.standard_normal((rows, d)).astype(np.float32)
+        ti, tw, tx = (torch.from_numpy(a).to(DEVICE) for a in (idx, w, x))
+        order = GK.rmatvec_order(ti, n_out)
+        got = GK.rmatvec(ti, tw, tx, n_out, order=order)
+        err = within(got, GK.rmatvec_plain(ti, tw, tx, n_out), 1e-5, 1e-6,
+                     scale=GK.rmatvec_plain(ti, tw.abs(), tx.abs(), n_out))
+        check(torch.equal(got, GK.rmatvec(ti, tw, tx, n_out)),
+              "rmatvec with a built order differs from a given one")
+        hub = int((idx == n_out - 1).sum())
+        cases.append({"kernel": "graph_rmatvec", "rows": rows, "k": k,
+                      "d": d, "n": n_out, "hub_in_degree": hub,
+                      "max_abs_err": err})
     for n, dim in ((300, 2), (257, 1), (1000, 3), (513, 4), (1, 2)):
         y = torch.from_numpy(
             (rng.standard_normal((n, dim)) * 3).astype(np.float32)).to(DEVICE)
@@ -432,11 +658,14 @@ def tsne_term_scale(y, block: int = 2048) -> float:
 # ----------------------------------------------------------------------
 
 
-def compare(kernel_out, plain_out, tol: float) -> dict:
+def compare(kernel_out, plain_out, tol: float, survivors=None) -> dict:
     """Kernel rows against the plain version's: values within ``tol``
     (equal where infinite); ids equal except where the two values lie
     within ``tol`` of each other (a swap of near-ties, or the k-th
-    slot)."""
+    slot).  For the binned merge, ``survivors`` is the plain version's
+    ``(values (nq, n_bins), n_bins)`` of every bin: a differing id is
+    also allowed where the plain survivor of the kernel id's bin lies
+    within ``tol`` of the kernel's value (a near-tie inside one bin)."""
     kv, ki = (t.cpu().numpy() for t in kernel_out)
     pv, pi = (t.cpu().numpy() for t in plain_out)
     check(kv.shape == pv.shape, f"shapes {kv.shape} vs {pv.shape}")
@@ -450,9 +679,27 @@ def compare(kernel_out, plain_out, tol: float) -> dict:
         at = np.nonzero(pi[i] == ki[i, j])[0]
         swapped = len(at) and abs(pv[i, at[0]] - kv[i, j]) <= tol
         boundary = abs(kv[i, j] - pv[i, -1]) <= tol
-        bad += not (swapped or boundary)
+        in_bin = survivors is not None and ki[i, j] >= 0 and abs(
+            survivors[0][i, ki[i, j] % survivors[1]] - kv[i, j]) <= tol
+        bad += not (swapped or boundary or in_bin)
     check(bad == 0, f"{bad} ids differ beyond near-ties")
     return {"max_abs_err": err, "idx_agree": float((ki == pi).mean())}
+
+
+def binned_plain(q, c, k: int, n_bins: int, metric: str = "cosine",
+                 exclude_self: bool = False, block=None):
+    """The binned merge's plain version and its per-bin survivors (for
+    the bin-aware near-tie rule of ``compare``)."""
+    from sctools_tpu_torch.ops.knn_kernel import (bin_survivors,
+                                                  binned_bins,
+                                                  knn_binned_plain)
+
+    kw = dict(metric=metric, exclude_self=exclude_self, query_block=block,
+              cand_block=block)
+    want = knn_binned_plain(q, c, k=k, n_bins=n_bins, **kw)
+    nb = binned_bins(k, n_bins)
+    sv, _ = bin_survivors(q, c, n_bins=nb, **kw)
+    return want, (sv.cpu().numpy(), nb)
 
 
 def edges_phase() -> None:
@@ -503,6 +750,65 @@ def edges_phase() -> None:
     emit({"phase": "edges", "cases": results})
 
 
+def binned_edges_phase() -> None:
+    """The binned kNN kernel against its plain version at the corners of
+    its merge: fewer candidates than bins (then bitwise the exact
+    kernel), candidate counts that are no multiple of n_bins, k = 1 and
+    256, n_bins 128 and 1024 (and one rounded up from 300), bf16,
+    euclidean, self exclusion, and integer points with exact ties inside
+    and across bins (then ids identical)."""
+    import torch
+
+    from sctools_tpu_torch.ops.knn import _prep
+    from sctools_tpu_torch.ops.knn_kernel import knn_binned, knn_select
+
+    rng = np.random.default_rng(3)
+    cases = [
+        # (nq, nc, d, k, n_bins, metric, dtype, exclude_self, integer)
+        (1000, 1000, 50, 15, 1024, "cosine", torch.float32, False, False),
+        (1000, 1000, 33, 16, 1024, "euclidean", torch.float32, True, False),
+        (1000, 5000, 50, 15, 1024, "cosine", torch.float32, False, False),
+        (777, 3001, 50, 1, 128, "cosine", torch.float32, False, False),
+        (300, 6000, 50, 256, 1024, "cosine", torch.float32, False, False),
+        (1000, 4000, 50, 32, 300, "euclidean", torch.bfloat16, False,
+         False),
+        (1000, 2000, 50, 15, 128, "cosine", torch.bfloat16, True, False),
+        (2000, 2000, 8, 12, 128, "euclidean", torch.float32, True, True),
+        (2000, 2000, 8, 12, 256, "cosine", torch.float32, False, True),
+    ]
+    results = []
+    for nq, nc, d, k, n_bins, metric, dtype, excl, integer in cases:
+        if integer:
+            base = rng.integers(-3, 4, size=(40, d)).astype(np.float32)
+            pts = base[rng.integers(0, 40, size=max(nq, nc))]
+        else:
+            pts = rng.normal(size=(max(nq, nc), d)).astype(np.float32)
+        x = torch.from_numpy(pts).cuda()
+        c = _prep(x[:nc], metric, dtype)
+        q = _prep(x[:nq], metric, dtype) if nq != nc else c
+        got = knn_binned(q, c, k=k, n_bins=n_bins, metric=metric,
+                         exclude_self=excl)
+        want, surv = binned_plain(q, c, k, n_bins, metric, excl)
+        sync()
+        tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+        if metric == "euclidean":
+            tol *= max(1.0, 2 * d)  # scores scale with |q|^2 + |c|^2
+        stats = compare(got, want, tol, survivors=surv)
+        if integer:
+            check(stats["idx_agree"] == 1.0,
+                  "exact ties must give identical ids")
+        if nc <= surv[1]:
+            exact = knn_select(q, c, k=k, metric=metric, exclude_self=excl)
+            check(all(torch.equal(a, b) for a, b in zip(got, exact)),
+                  f"n_cand {nc} <= n_bins {surv[1]}: binned differs from "
+                  "the exact kernel")
+        results.append({"nq": nq, "nc": nc, "d": d, "k": k,
+                        "n_bins": surv[1], "metric": metric,
+                        "dtype": str(dtype)[6:], "exclude_self": excl,
+                        **stats})
+    emit({"phase": "binned_edges", "cases": results})
+
+
 def library_topk(q, c, k: int):
     """The yardstick: blocked ``torch.matmul`` + ``torch.topk``, in
     blocks of queries whose score rows stay under 1 GiB."""
@@ -519,35 +825,52 @@ def library_topk(q, c, k: int):
 
 def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
                 launches: int, card: str, peaks: dict,
-                ids_for_recall=None) -> dict:
+                ids_for_recall=None, n_bins: int | None = None) -> dict:
     """Kernel against plain version on the first N_COMPARE queries,
     recall@10 of those queries against the float64 ``oracle`` ids, and
-    the times.  The comparison calls are the timings' warm-up."""
+    the times: the exact kernel, or the binned one with ``n_bins`` (its
+    ids held with the bin-aware near-tie rule, recall gated at 0.98).
+    The comparison calls are the timings' warm-up; the plain version is
+    timed over 3 calls (seconds each at the wide shape)."""
     import torch
 
     from sctools_tpu_torch.config import true_f32
     from sctools_tpu_torch.ops.knn import recall_at_k
-    from sctools_tpu_torch.ops.knn_kernel import knn_select, knn_select_plain
+    from sctools_tpu_torch.ops import knn_kernel as KK
 
+    if n_bins is None:
+        name, line, gate = "knn_select", 84, 0.99
+        kernel = lambda: KK.knn_select(q, c, k=k, metric=metric)  # noqa
+        plain = lambda qq: KK.knn_select_plain(  # noqa: E731
+            qq, c, k=k, metric=metric, query_block=PLAIN_BLOCK,
+            cand_block=PLAIN_BLOCK)
+    else:
+        name, line, gate = "knn_binned", 113, 0.98
+        kernel = lambda: KK.knn_binned(  # noqa: E731
+            q, c, k=k, n_bins=n_bins, metric=metric)
+        plain = lambda qq: KK.knn_binned_plain(  # noqa: E731
+            qq, c, k=k, n_bins=n_bins, metric=metric,
+            query_block=PLAIN_BLOCK, cand_block=PLAIN_BLOCK)
     dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
     tol = 1e-3 if dtype == "bfloat16" else 1e-5
-    kv, ki = knn_select(q, c, k=k, metric=metric)
-    pv, pi = knn_select_plain(q[:N_COMPARE], c, k=k, metric=metric,
-                              query_block=PLAIN_BLOCK,
-                              cand_block=PLAIN_BLOCK)
+    kv, ki = kernel()
+    if n_bins is None:
+        (pv, pi), surv = plain(q[:N_COMPARE]), None
+    else:
+        (pv, pi), surv = binned_plain(q[:N_COMPARE], c, k, n_bins, metric,
+                                      block=PLAIN_BLOCK)
     sync()
-    stats = compare((kv[:N_COMPARE], ki[:N_COMPARE]), (pv, pi), tol)
+    stats = compare((kv[:N_COMPARE], ki[:N_COMPARE]), (pv, pi), tol,
+                    survivors=surv)
     pred = (ki[:N_COMPARE] if ids_for_recall is None
             else ids_for_recall[:N_COMPARE]).cpu().numpy()
     recall = recall_at_k(pred, oracle, k=10)
-    check(recall >= 0.99, f"{name_shape}: recall@10 {recall} < 0.99")
-    del kv, ki, pv, pi
+    check(recall >= gate, f"{name} {name_shape}: recall@10 {recall} < "
+                          f"{gate}")
+    del kv, ki, pv, pi, surv
 
-    ms = cuda_ms(lambda: knn_select(q, c, k=k, metric=metric),
-                 warmup=False)
-    plain_ms = cuda_ms(lambda: knn_select_plain(
-        q, c, k=k, metric=metric, query_block=PLAIN_BLOCK,
-        cand_block=PLAIN_BLOCK), warmup=False)
+    ms = cuda_ms(kernel, warmup=False)
+    plain_ms = cuda_ms(lambda: plain(q), reps=3, warmup=False)
     with true_f32():
         library_ms = cuda_ms(lambda: library_topk(q, c, k))
     nq, d = q.shape
@@ -555,9 +878,9 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
     t_ops = 2.0 * nq * nc * d / peaks[dtype] * 1e3
     t_bytes = ((nq + nc) * d * q.element_size() + nq * k * 8) \
         / peaks["bytes"] * 1e3
-    return {"name": "knn_select", "route": "cuda",
-            "source": "sctools_tpu_torch/csrc/knn_select.cu",
-            "replaces": "sctools_tpu/ops/pallas_knn.py:84",
+    return {"name": name, "route": "cuda",
+            "source": f"sctools_tpu_torch/csrc/{name}.cu",
+            "replaces": f"sctools_tpu/ops/pallas_knn.py:{line}",
             "shape": name_shape, "launches": launches,
             "max_abs_err": stats["max_abs_err"],
             "idx_agree": stats["idx_agree"], "recall_at_10": recall,
@@ -570,9 +893,16 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
 BOUND_RULES = {
     "knn_select": "max(2*nq*nc*d / peak[dtype], "
                   "((nq + nc)*d*elt + nq*k*8) / peak['bytes'])",
+    "knn_binned": "max(2*nq*nc*d / peak[dtype], "
+                  "((nq + nc)*d*elt + nq*k*8) / peak['bytes']); the "
+                  "merge's compares are not counted",
     "graph_matvec": "max(2*e*d / peak['float32'], "
                     "((nx + n)*d*4 + n*k*8) / peak['bytes']); e = valid "
                     "edges, each x row read once, y written once",
+    "graph_rmatvec": "max(2*e*d / peak['float32'], "
+                     "((rows + n)*d*4 + e*8) / peak['bytes']); e = valid "
+                     "edges, each x row read once, y written once, each "
+                     "edge's slot id and weight read once",
     "graph_jaccard": "max(2*e*k*k / peak['float32'], 2*n*k*4 / "
                      "peak['bytes']); one compare and one add per pair of "
                      "list entries of each valid edge e (the data sheet "
@@ -604,18 +934,70 @@ def bound(ops: float, nbytes: float, peaks: dict, dtype="float32"):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def edge_list_csr(idx, w):
-    """The (n, k) edge list as an (n, n) CSR tensor, for the library
-    yardstick (duplicate edges summed)."""
+def edge_list_csr(idx, w, transpose: bool = False):
+    """The (n, k) edge list as an (n, n) CSR tensor P, or Pᵀ, for the
+    library yardstick (duplicate edges summed)."""
     import torch
 
     n, k = idx.shape
     rows = torch.arange(n, device=idx.device).repeat_interleave(k)
     cols = idx.reshape(-1).long()
     keep = cols >= 0
-    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+    pair = [rows[keep], cols[keep]]
+    coo = torch.sparse_coo_tensor(torch.stack(pair[::-1] if transpose
+                                              else pair),
                                   w.reshape(-1)[keep], (n, n))
     return coo.coalesce().to_sparse_csr()
+
+
+def rmatvec_rows(meta: dict, palantir_launches: int, card: str,
+                 peaks: dict) -> list:
+    """``graph_rmatvec`` against its plain version at the metacells
+    path's shape (the kernel edge list, x = K·B of 914 columns) and at
+    d = 1 (Palantir's stationary vector) on the same edge list, with
+    times; the destination order is built once, outside the timings."""
+    import torch
+
+    from sctools_tpu_torch.config import true_f32
+    from sctools_tpu_torch.ops import graph_kernels as GK
+
+    idx, w, x = meta["idx"], meta["w"], meta["x"]
+    n, k = idx.shape
+    order = GK.rmatvec_order(idx, n)
+    edges = int(order[1][-1])
+    csr = edge_list_csr(idx, w, transpose=True)
+    rows = []
+    for xx, launches, what in (
+            (x, meta["launches"], "metacells.seacells KTmat"),
+            (x[:, :1].contiguous(), palantir_launches,
+             "palantir stationary")):
+        d = xx.shape[1]
+        got = GK.rmatvec(idx, w, xx, n, order=order)
+        want = GK.rmatvec_plain(idx, w, xx, n)
+        err = within(got, want, 1e-5, 1e-6,
+                     scale=GK.rmatvec_plain(idx, w.abs(), xx.abs(), n))
+        with true_f32():
+            lib_err = float((torch.sparse.mm(csr, xx) - want).abs().max())
+        del got, want
+        ms = cuda_ms(lambda: GK.rmatvec(idx, w, xx, n, order=order),
+                     warmup=False)
+        plain_ms = cuda_ms(lambda: GK.rmatvec_plain(idx, w, xx, n))
+        with true_f32():
+            library_ms = cuda_ms(lambda: torch.sparse.mm(csr, xx))
+        bms, by = bound(2.0 * edges * d, 2.0 * n * d * 4 + edges * 8.0,
+                        peaks)
+        rows.append({
+            "name": "graph_rmatvec", "route": "cuda",
+            "source": "sctools_tpu_torch/csrc/graph_rmatvec.cu",
+            "replaces": "sctools_tpu/ops/pallas_graph.py:200",
+            "shape": f"{n}x{k} edges -> x {n}x{d} float32 ({what})",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.sparse.mm(CSR P^T, dense x)",
+            "library_max_abs_err": lib_err,
+            "order_build_ms": meta["order_ms"], "bound_ms": bms,
+            "bound_by": by, "card": card})
+    return rows
 
 
 def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
@@ -712,7 +1094,8 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
     return rows
 
 
-def kernels_phase(x_pca, launches: int, card: str, peaks: dict) -> list:
+def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
+                  peaks: dict) -> list:
     import torch
 
     from sctools_tpu_torch import configure
@@ -728,6 +1111,9 @@ def kernels_phase(x_pca, launches: int, card: str, peaks: dict) -> list:
     out.append(kernel_case(
         f"{n}x{n}x50 k=15 float32 (main path)", q, q, 15, "cosine",
         oracle, launches, card, peaks))
+    out.append(kernel_case(
+        f"{n}x{n}x50 k=15 float32, 1024 bins (binned path)", q, q, 15,
+        "cosine", oracle, binned_launches, card, peaks, n_bins=1024))
     del q
 
     pts, _ = gaussian_blobs(WIDE_CANDS, DIM, n_clusters=50, seed=0)
@@ -748,6 +1134,11 @@ def kernels_phase(x_pca, launches: int, card: str, peaks: dict) -> list:
             + (" then refine to 15" if refined is not None else ""),
             q, c, k, "cosine", oracle, launches, card, peaks,
             ids_for_recall=refined))
+        if dtype == torch.float32:
+            out.append(kernel_case(
+                f"{WIDE_QUERIES}x{WIDE_CANDS}x{DIM} k=15 float32, 1024 "
+                "bins", q, c, 15, "cosine", oracle, binned_launches, card,
+                peaks, n_bins=1024))
         del q, c, refined
     return out
 
@@ -761,14 +1152,20 @@ def main() -> int:
     import sctools_tpu_torch  # noqa: F401  (fails alone, without the repo)
 
     card = card_phase()
-    out, x_pca, launches = main_phase(card)
-    graph = graph_phase(out, card)
-    del out
+    main_out = main_phase(card)
+    binned_launches = binned_phase(main_out, card)
+    graph = graph_phase(main_out["out"], card)
+    meta = metacells_phase(main_out, card)
+    pal = palantir_phase(main_out, card)
+    x_pca, launches = main_out["x_pca"], main_out["launches"]
+    del main_out
     edges_phase()
+    binned_edges_phase()
     graph_edges_phase()
     peaks = bounds_phase()
-    kernels = kernels_phase(x_pca, launches, card, peaks)
+    kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks)
     kernels += graph_kernels_phase(graph, card, peaks)
+    kernels += rmatvec_rows(meta, pal["launches"], card, peaks)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

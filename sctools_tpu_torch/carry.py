@@ -11,7 +11,10 @@ over the reference's arrays through numpy:
   ``jax.random``, which torch cannot reproduce) into the ``omega=`` of
   ``pca.randomized``, so both packages compute the same PCA;
 * ``graph_from_numpy`` attaches the reference's kNN graph, so both
-  packages run the graph tail on the same edges.
+  packages run the graph tail on the same edges;
+* ``spectral_v0_from_numpy`` turns the reference's start block of the
+  diffusion-map subspace iteration (``jax.random`` again) into the
+  ``v0=`` of ``embed.spectral``.
 """
 
 from __future__ import annotations
@@ -62,6 +65,16 @@ def pca_omega_from_numpy(omega) -> torch.Tensor:
     if omega.ndim != 2:
         raise ValueError(f"omega must be (G, L), got {omega.shape}")
     return torch.from_numpy(omega)
+
+
+def spectral_v0_from_numpy(v0) -> torch.Tensor:
+    """The reference's (n, n_comps + 5) start block of
+    ``diffusion_eigs`` as the float32 tensor that ``embed.spectral(...,
+    v0=)`` takes."""
+    v0 = np.array(v0, dtype=np.float32)
+    if v0.ndim != 2:
+        raise ValueError(f"v0 must be (n, width), got {v0.shape}")
+    return torch.from_numpy(v0)
 
 
 def graph_from_numpy(data: CellData, knn_indices, knn_distances,

@@ -42,10 +42,16 @@ class Config:
 
     matmul_dtype: str = "float32"  # or "bfloat16"
 
-    # kNN search implementation.  Only "auto" exists in this port so
-    # far: the fused distance + top-k kernel (ops/knn_kernel.py) on a
-    # CUDA tensor, its plain version on a CPU tensor.
+    # kNN search implementation: "auto" and "pallas" (the names the
+    # reference takes) both mean the exact fused distance + top-k kernel
+    # (ops/knn_kernel.py:knn_select); "pallas_binned" the binned merge
+    # (knn_binned, one survivor per bin of knn_bins columns).  Each runs
+    # its CUDA kernel on a CUDA tensor and its plain version on a CPU
+    # tensor.  The reference's blocked "xla" search is not ported.
     knn_impl: str = "auto"
+    # Bin count of the binned merge (rounded up to a multiple of 128);
+    # two true neighbours share a bin with odds ~k²/(2·knn_bins).
+    knn_bins: int = 1024
 
     # Graph-kernel implementation (matvec, jaccard, t-SNE repulsion).
     # Only "auto" exists: the wrappers of ops/graph_kernels.py pick by
@@ -54,11 +60,15 @@ class Config:
     graph_impl: str = "auto"
 
     def resolved_knn_impl(self) -> str:
-        if self.knn_impl != "auto":
-            raise ValueError(
-                f"knn_impl={self.knn_impl!r}: only 'auto' (the fused "
-                "kernel) is ported so far")
-        return "kernel"
+        """"select" (the exact kernel) or "binned"."""
+        if self.knn_impl in ("auto", "pallas"):
+            return "select"
+        if self.knn_impl == "pallas_binned":
+            return "binned"
+        raise ValueError(
+            f"knn_impl={self.knn_impl!r}: the port has 'auto' / 'pallas' "
+            "(exact kernel) and 'pallas_binned'; the blocked 'xla' search "
+            "is not ported (ROADMAP.md Queue 1 item 6)")
 
     def resolved_graph_impl(self) -> str:
         if self.graph_impl != "auto":

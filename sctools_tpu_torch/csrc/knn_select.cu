@@ -42,77 +42,11 @@
 // query tile (nc*d*elt per block, from L2 after the first).  With
 // d = 50 the kernel is bound by operations, not bytes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "knn_tile.cuh"
 
 namespace {
 
-constexpr int QB = 64;              // queries per block
-constexpr int CB = 64;              // candidates per tile
-constexpr int THREADS = 256;
-constexpr int SUBS = THREADS / QB;  // threads sharing one query's list
-constexpr int CPT = CB / SUBS;      // tile columns scanned by each
-constexpr int TS = 64 + 4;  // row stride of the staged tiles: float4-
-                            // aligned, transposed stores spread on banks
-constexpr int SS = CB + 4;  // row stride of the score tile
-static_assert(QB == 64 && CB == 64, "stage() stages 64 rows per tile");
-constexpr int D_MAX = 256;
-constexpr int K_MAX = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Insert (s, c) into the list sorted by value descending; the caller
-// has checked s > v[K - 1].  Every index is a compile-time constant
-// after unrolling, so the list stays in registers for small K.
-template <int K>
-__device__ __forceinline__ void insert(float (&v)[K], int (&id)[K], float s,
-                                       int c) {
-#pragma unroll
-  for (int t = K - 1; t > 0; --t) {
-    if (v[t - 1] < s) {
-      v[t] = v[t - 1];
-      id[t] = id[t - 1];
-    } else if (v[t] < s) {
-      v[t] = s;
-      id[t] = c;
-    }
-  }
-  if (v[0] < s) {
-    v[0] = s;
-    id[0] = c;
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void pop_front(float (&v)[K], int (&id)[K]) {
-#pragma unroll
-  for (int t = 0; t < K - 1; ++t) {
-    v[t] = v[t + 1];
-    id[t] = id[t + 1];
-  }
-  v[K - 1] = -CUDART_INF_F;
-  id[K - 1] = -1;
-}
-
-// Stage rows [r0, r0 + 64) of x (n, d) into dst[kk * TS + r] as f32,
-// zero past row n.  The rows are contiguous in x, so the reads are
-// coalesced.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ x,
-                                      int r0, int n, int d) {
-  const int64_t base = (int64_t)r0 * d;
-  const int64_t avail = (int64_t)(n - r0) * d;
-  for (int e = threadIdx.x; e < 64 * d; e += THREADS) {
-    const int r = e / d;
-    const int kk = e - r * d;
-    dst[kk * TS + r] = e < avail ? to_f32(x[base + e]) : 0.f;
-  }
-}
+using namespace sct_knn;
 
 template <typename T, int K>
 __global__ void __launch_bounds__(THREADS)
@@ -132,69 +66,19 @@ __global__ void __launch_bounds__(THREADS)
   const int tx = tid % 16, ty = tid / 16;  // score tile: 4x4 per thread
   const int r = tid / SUBS, sub = tid % SUBS;  // selection: query, part
 
-  stage(qs, q, q0, nq, d);
-  __syncthreads();
-  if (euclid && tid < QB) {
-    float a = 0.f;
-    for (int kk = 0; kk < d; ++kk) a += qs[kk * TS + tid] * qs[kk * TS + tid];
-    qn[tid] = a;
-  }
-
+  stage_queries(qs, qn, q, q0, nq, d, euclid);
   float v[K];
   int id[K];
-  const int pad = K - k;
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    v[t] = t < pad ? CUDART_INF_F : -CUDART_INF_F;
-    id[t] = -1;
-  }
+  init_list<K>(v, id, k);
 
   for (int c0 = 0; c0 < nc; c0 += CB) {
-    __syncthreads();  // the previous tile's readers are done
-    stage(cs, c, c0, nc, d);
-    __syncthreads();
-    if (euclid) {
-      if (tid < CB) {
-        float a = 0.f;
-        for (int kk = 0; kk < d; ++kk)
-          a += cs[kk * TS + tid] * cs[kk * TS + tid];
-        cn[tid] = a;
-      }
-      __syncthreads();
-    }
-
-    float acc[4][4];
+    stage_candidates(cs, cn, c, c0, nc, d, euclid);
+    float s[4][4];
+    score_cells(qs, cs, qn, cn, d, q0, c0, nc, euclid, exclude_self, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(qs + kk * TS + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(cs + kk * TS + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      float s4[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx * 4 + j;
-        const int gcol = c0 + col;
-        float s = acc[i][j];
-        if (euclid) s = -((qn[row] - 2.f * s) + cn[col]);
-        if (gcol >= nc || (exclude_self && gcol == q0 + row)) s = -CUDART_INF_F;
-        s4[j] = s;
-      }
-      *reinterpret_cast<float4*>(st + row * SS + tx * 4) =
-          make_float4(s4[0], s4[1], s4[2], s4[3]);
-    }
+      *reinterpret_cast<float4*>(st + (ty * 4 + i) * SS + tx * 4) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
     __syncthreads();
 
     // One insertion site (no unrolling): the unrolled insert is O(K)
@@ -203,45 +87,20 @@ __global__ void __launch_bounds__(THREADS)
     const int cbase = c0 + sub * CPT;
 #pragma unroll 1
     for (int jj = 0; jj < CPT; ++jj) {
-      const float s = srow[jj];
-      if (s > v[K - 1]) insert<K>(v, id, s, cbase + jj);
+      const float sv = srow[jj];
+      if (sv > v[K - 1]) insert<K>(v, id, sv, cbase + jj);
     }
   }
 
-  // Merge the SUBS lists of each query (adjacent lanes of one warp).
-  for (int p = 0; p < pad; ++p) pop_front<K>(v, id);
-  const int qrow = q0 + r;
-  for (int t = 0; t < k; ++t) {
-    float bv = v[0];
-    int bi = id[0];
-    int bs = sub;
-#pragma unroll
-    for (int off = 1; off < SUBS; off <<= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      const int os = __shfl_xor_sync(0xffffffffu, bs, off);
-      const bool take =
-          ov > bv || (ov == bv && (oi < bi || (oi == bi && os < bs)));
-      if (take) {
-        bv = ov;
-        bi = oi;
-        bs = os;
-      }
-    }
-    if (bs == sub) pop_front<K>(v, id);
-    if (sub == 0 && qrow < nq) {
-      out_v[(int64_t)qrow * k + t] = bv;
-      out_i[(int64_t)qrow * k + t] = isfinite(bv) ? bi : -1;
-    }
-  }
+  // Merge the SUBS lists of each query, ties to the lower id.
+  merge_write<K>(v, id, k, q0 + r, nq, sub, 0, out_v, out_i);
 }
 
 template <typename T, int K>
 cudaError_t launch(const void* q, const void* c, int nq, int nc, int d,
                    int k, int euclid, int exclude_self, float* out_v,
                    int* out_i, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * d * TS + QB * SS + QB + CB);
+  const size_t smem = smem_bytes(d, 0);
   auto kern = knn_select_kernel<T, K>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

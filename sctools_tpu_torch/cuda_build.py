@@ -5,7 +5,9 @@ Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for
 linked into one shared library with a plain C interface,
 ``_build/libsct_kernels_<hash of the sources>.so``, which is loaded with
 ``ctypes``.  The build runs at the first launch of a kernel, never at
-import, and a library whose hash matches the sources is reused.
+import, and a library whose hash matches the sources is reused.  The
+library is looked up once per process: later launches neither hash nor
+stat the sources.
 """
 
 from __future__ import annotations
@@ -30,13 +32,16 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sct_knn_select": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
                        _I),
+    "sct_knn_binned": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                        _P], _I),
     "sct_graph_matvec": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+    "sct_graph_rmatvec": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "sct_graph_jaccard": ([_P, _I, _I, _P, _P], _I),
     "sct_tsne_repulsion": ([_P, _I, _I, _P, _P, _P], _I),
     "sct_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: ctypes.CDLL | None = None
 
 
 def sources() -> list[Path]:
@@ -114,17 +119,17 @@ def build(verbose: bool = False) -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    path = str(build())
-    lib = _loaded.get(path)
-    if lib is None:
-        lib = ctypes.CDLL(path)
+    """The loaded kernel library, built first if needed; every launch
+    calls this, so after the first call it only returns the handle."""
+    global _loaded
+    if _loaded is None:
+        lib = ctypes.CDLL(str(build()))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
-        _loaded[path] = lib
-    return lib
+        _loaded = lib
+    return _loaded
 
 
 def check(code: int, what: str) -> None:

@@ -1,7 +1,7 @@
 """The port's ops; importing this package registers them."""
 
-from . import (graph, graph_kernels, hvg, knn, knn_kernel, normalize, pca,
-               qc, tsne)
+from . import (graph, graph_kernels, hvg, knn, knn_kernel, metacells,
+               normalize, palantir, pca, qc, tsne)
 
 __all__ = ["graph", "graph_kernels", "hvg", "knn", "knn_kernel",
-           "normalize", "pca", "qc", "tsne"]
+           "metacells", "normalize", "palantir", "pca", "qc", "tsne"]

@@ -1,6 +1,8 @@
 """Neighbour-graph ops of the post-kNN tail: ``graph.connectivities``,
-``graph.jaccard``, ``graph.diffusion_operator``, ``impute.magic`` and
-the locality pass ``graph.reorder`` / ``graph.restore_order``.
+``graph.jaccard``, ``graph.diffusion_operator``, ``impute.magic``, the
+diffusion map ``embed.spectral`` (alias ``embed.diffmap``),
+``dpt.pseudotime`` and the locality pass ``graph.reorder`` /
+``graph.restore_order``.
 
 Counterpart of ``sctools_tpu/ops/graph.py``.  The kNN graph stays in
 its padded (n, k) edge-list form, as ``neighbors.knn`` produces it;
@@ -10,8 +12,7 @@ kernels of ``graph_kernels``.  The RCM permutation is a host pass on
 scipy, as in the reference; the permutation itself is applied on the
 device.  The ``uns`` keys are the reference's.
 
-Not ported yet (ROADMAP.md Queue 1 item 10): ``embed.spectral``,
-``embed.diffmap``, ``dpt.pseudotime``, ``graph.paga`` and the
+Not ported yet (ROADMAP.md Queue 1 item 10): ``graph.paga`` and the
 reference's telemetry gauges and counters.
 """
 
@@ -22,7 +23,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, true_f32
 from ..data.dataset import CellData
 from ..data.sparse import SparseCells
 from ..registry import register
@@ -148,6 +149,18 @@ def knn_matvec(knn_idx: torch.Tensor, weights: torch.Tensor,
     return graph_kernels.matvec(knn_idx, weights, x, band_rows=band_rows)
 
 
+def knn_rmatvec(knn_idx: torch.Tensor, weights: torch.Tensor,
+                x: torch.Tensor, n: int | None = None,
+                band_rows: int | None = None, order=None) -> torch.Tensor:
+    """``Pᵀ @ x``, the adjoint of ``knn_matvec``, with ``n`` output rows
+    (default: the rows of ``knn_idx``): the ``graph_kernels.rmatvec``
+    kernel on the card, its plain version on the CPU.  ``order`` is
+    ``graph_kernels.rmatvec_order(knn_idx, n)``, for callers that apply
+    one graph many times."""
+    return graph_kernels.rmatvec(knn_idx, weights, x, n,
+                                 band_rows=band_rows, order=order)
+
+
 def _symmetrized_weights(idx: torch.Tensor, w: torch.Tensor,
                          block: int = 8192, mode: str = "average"
                          ) -> torch.Tensor:
@@ -249,6 +262,116 @@ def magic(data: CellData, t: int = 3, use_rep: str = "X",
     for _ in range(t):
         out = knn_matvec(idx, p, out, band_rows=band)
     return data.with_obsm(X_magic=out).with_uns(magic_t=t)
+
+
+# ----------------------------------------------------------------------
+# embed.spectral / embed.diffmap / dpt.pseudotime
+# ----------------------------------------------------------------------
+
+
+def _sym_normalized_edges(idx: torch.Tensor, w: torch.Tensor):
+    """Edge weights of S = D^-1/2 W_mutual D^-1/2, the degree vector and
+    D^-1/2.  W_mutual is exactly symmetric (one-sided edges dropped), so
+    S is symmetric with its spectrum in [-1, 1]."""
+    wm = _symmetrized_weights(idx, w, mode="mutual")
+    wm = torch.where(idx < 0, 0.0, wm)
+    deg = wm.sum(dim=1)
+    inv_sqrt = torch.where(deg > 0, 1.0 / torch.sqrt(torch.clamp(
+        deg, min=1e-12)), 0.0)
+    safe = torch.where(idx < 0, 0, idx).long()
+    return wm * inv_sqrt[:, None] * inv_sqrt[safe], deg, inv_sqrt
+
+
+def diffusion_eigs(knn_idx: torch.Tensor, s_edges: torch.Tensor,
+                   n_comps: int = 15, n_iter: int = 60,
+                   band_rows: int | None = None,
+                   v0: torch.Tensor | None = None, seed: int = 0):
+    """Leading eigenpairs of the symmetric operator S on the edge list,
+    by subspace iteration on (S + I)/2 (its spectrum shifted to [0, 1],
+    so the largest algebraic eigenvalues lead) with CholeskyQR2 and a
+    Rayleigh–Ritz step; matrix-free, one ``knn_matvec`` per iteration
+    plus one.  ``v0`` (n, n_comps + 5) is the start block (see
+    ``carry.spectral_v0_from_numpy``); without it a standard normal
+    block is drawn from a ``torch.Generator`` seeded with ``seed``.
+    Returns ``(evals (n_comps,), vecs (n, n_comps))`` by descending
+    eigenvalue."""
+    from .pca import cholesky_qr
+
+    n = knn_idx.shape[0]
+    width = n_comps + 5
+    dev = knn_idx.device
+    if v0 is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        v0 = torch.randn((n, width), generator=gen, device=dev)
+    elif tuple(v0.shape) != (n, width):
+        raise ValueError(
+            f"v0 has shape {tuple(v0.shape)}, expected {(n, width)}")
+    V = cholesky_qr(v0.to(device=dev, dtype=torch.float32))
+    for _ in range(n_iter):
+        V = cholesky_qr(0.5 * (knn_matvec(knn_idx, s_edges, V,
+                                          band_rows=band_rows) + V))
+    SV = knn_matvec(knn_idx, s_edges, V, band_rows=band_rows)
+    with true_f32():
+        H = V.T @ SV
+        evals, W = torch.linalg.eigh(0.5 * (H + H.T))
+        order = torch.argsort(-evals, stable=True)[:n_comps]
+        rot = V @ W  # the Ritz rotation
+    return evals[order], rot[:, order]
+
+
+@register("embed.spectral")
+def spectral(data: CellData, n_comps: int = 15, seed: int = 0,
+             drop_first: bool = True, v0=None, device=None) -> CellData:
+    """Diffusion-map embedding from the symmetric normalised kernel of
+    ``connectivities`` (computed first if missing); the eigenvectors are
+    mapped back to the random-walk convention (ψ = D^-1/2 φ, each column
+    unit-normalised).  Adds obsm ``X_diffmap`` and uns
+    ``diffmap_evals``; the trivial top eigenvector is dropped by
+    default.  ``v0`` is the (n, n_comps + drop_first + 5) start block of
+    ``diffusion_eigs``."""
+    data = data.to_device(resolve_device(device))
+    if "connectivities" not in data.obsp:
+        data = connectivities(data, device=device)
+    idx, _ = _require_knn(data)
+    w = data.obsp["connectivities"][: data.n_cells]
+    s, _, inv_sqrt = _sym_normalized_edges(idx, w)
+    extra = 1 if drop_first else 0
+    evals, phi = diffusion_eigs(
+        idx, s, n_comps=n_comps + extra, band_rows=_band(data),
+        v0=None if v0 is None else torch.as_tensor(v0), seed=seed)
+    psi = phi * inv_sqrt[:, None]
+    psi = psi / torch.clamp(torch.linalg.vector_norm(psi, dim=0,
+                                                     keepdim=True),
+                            min=1e-12)
+    if drop_first:
+        evals, psi = evals[1:], psi[:, 1:]
+    return data.with_obsm(X_diffmap=psi).with_uns(diffmap_evals=evals)
+
+
+@register("embed.diffmap")
+def diffmap(data: CellData, n_comps: int = 15, seed: int = 0,
+            drop_first: bool = True, v0=None, device=None) -> CellData:
+    """scanpy's name (``tl.diffmap``) for ``embed.spectral``: the same
+    computation."""
+    return spectral(data, n_comps=n_comps, seed=seed, drop_first=drop_first,
+                    v0=v0, device=device)
+
+
+@register("dpt.pseudotime")
+def dpt(data: CellData, root: int = 0, device=None) -> CellData:
+    """Diffusion pseudotime: the Euclidean distance to the root cell in
+    the eigenvalue-rescaled diffusion map (DPT's closed form), scaled to
+    [0, 1].  Runs ``embed.spectral`` first if ``X_diffmap`` is missing.
+    Adds obs ``dpt_pseudotime`` and uns ``dpt_root``."""
+    data = data.to_device(resolve_device(device))
+    if "X_diffmap" not in data.obsm:
+        data = spectral(data, device=device)
+    V = data.obsm["X_diffmap"]
+    ev = data.uns["diffmap_evals"]
+    Z = V * (ev / torch.clamp(1.0 - ev, min=1e-6))[None, :]
+    d = torch.linalg.vector_norm(Z - Z[root], dim=1)
+    d = d / torch.clamp(d.max(), min=1e-12)
+    return data.with_obs(dpt_pseudotime=d).with_uns(dpt_root=root)
 
 
 # ----------------------------------------------------------------------

@@ -1,12 +1,16 @@
 """Graph kernels of the post-kNN tail: the wrappers of the CUDA kernels
-``csrc/graph_matvec.cu``, ``csrc/graph_jaccard.cu`` and
-``csrc/tsne_repulsion.cu``, and their plain PyTorch versions.
+``csrc/graph_matvec.cu``, ``csrc/graph_rmatvec.cu``,
+``csrc/graph_jaccard.cu`` and ``csrc/tsne_repulsion.cu``, and their
+plain PyTorch versions.
 
 Counterpart of ``sctools_tpu/ops/pallas_graph.py``:
 
 * ``matvec``  — ``P @ x`` on the padded (n, k) edge list, ``y[r] =
   Σ_t w[r,t]·x[idx[r,t]]`` with -1 ids weighing nothing
   (``_matvec_kernel``);
+* ``rmatvec`` — ``Pᵀ @ x``, the segment-sum adjoint ``y[c] =
+  Σ_{idx[r,t]=c} w[r,t]·x[r]`` (``_rmatvec_kernel``), over a
+  destination order that ``rmatvec_order`` builds once per graph;
 * ``jaccard`` — per-edge ``|N(i)∩N(j)| / |N(i)∪N(j)|`` with the
   reference's pairwise count (``_jaccard_kernel``);
 * ``tsne_repulsion`` — the exact all-pairs t-SNE repulsion and its
@@ -139,6 +143,111 @@ def matvec_plain(knn_idx: torch.Tensor, weights: torch.Tensor,
             out[r0:r0 + s.shape[0]] = torch.einsum(
                 "nk,nkd->nd", w[r0:r0 + block], g)
     return out
+
+
+# ----------------------------------------------------------------------
+# rmatvec
+# ----------------------------------------------------------------------
+
+
+def rmatvec_order(knn_idx: torch.Tensor, n: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The destination order of the edge list that ``rmatvec``'s kernel
+    reads: ``(edges, offsets)``, int32 on ``knn_idx``'s device.
+    ``edges`` holds the flat slot ids ``r·k + t`` of the edges with an id
+    in ``[0, n)``, stably sorted by that id, so each destination keeps
+    its incoming edges in ascending (r, t) order; destination c owns
+    ``edges[offsets[c]:offsets[c + 1]]``.  ``n`` defaults to the number
+    of rows.  Index bookkeeping only (sort, count, cumsum): build it
+    once per graph and pass it to every ``rmatvec`` on that graph."""
+    rows, k = knn_idx.shape
+    n = rows if n is None else int(n)
+    if not 0 <= n < 2 ** 31 or rows * k >= 2 ** 31:
+        raise ValueError(f"n={n} or {rows}x{k} slots beyond int32 ids")
+    flat = knn_idx.reshape(-1).long()
+    slots = torch.nonzero((flat >= 0) & (flat < n)).reshape(-1)
+    dest = flat[slots]
+    edges = slots[torch.sort(dest, stable=True).indices]
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=knn_idx.device)
+    torch.cumsum(torch.bincount(dest, minlength=n), 0, out=offsets[1:])
+    return edges.to(torch.int32), offsets.to(torch.int32)
+
+
+def rmatvec(knn_idx: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
+            n: int | None = None, *, band_rows: int | None = None,
+            order: tuple[torch.Tensor, torch.Tensor] | None = None
+            ) -> torch.Tensor:
+    """``Pᵀ @ x``: (n, d) float32 with ``y[c] = Σ_{idx[r,t]=c}
+    w[r,t]·x[r]`` for ``knn_idx`` and ``weights`` (rows, k) and ``x``
+    (rows, d); ``n`` (default rows) may differ from rows, and ids
+    outside ``[0, n)`` (-1 is the padding) add nothing.  ``order`` is
+    ``rmatvec_order(knn_idx, n)``, built here when not given; callers
+    that apply one graph many times build it once.  ``band_rows`` is
+    unused (module docstring).  CPU tensors go to ``rmatvec_plain``,
+    which needs no order.
+
+    On the card each destination sums its edges in ascending (r, t)
+    order with ``fmaf``, so the result is the same bit for bit from run
+    to run."""
+    del band_rows
+    _check_edges(knn_idx, weights)
+    rows = knn_idx.shape[0]
+    n = rows if n is None else int(n)
+    if x.ndim != 2 or x.shape[0] != rows or x.device != knn_idx.device:
+        raise ValueError(
+            f"x must be ({rows}, d) on {knn_idx.device}, got "
+            f"{tuple(x.shape)} on {x.device}")
+    if not _kernel_device(knn_idx, "rmatvec"):
+        return rmatvec_plain(knn_idx, weights, x, n)
+    edges, offsets = order if order is not None else rmatvec_order(
+        knn_idx, n)
+    if offsets.shape != (n + 1,) or edges.dtype != torch.int32 \
+            or offsets.dtype != torch.int32 or edges.device != x.device:
+        raise ValueError(
+            "order must be rmatvec_order(knn_idx, n) on x's device: int32 "
+            f"edges and ({n + 1},) int32 offsets")
+    k = knn_idx.shape[1]
+    w = weights.to(torch.float32).contiguous()
+    xf = x.to(torch.float32).contiguous()
+    d = xf.shape[1]
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    if n == 0 or d == 0:
+        return out
+    lib = cuda_build.library()
+    with torch.cuda.device(x.device):
+        code = lib.sct_graph_rmatvec(
+            edges.contiguous().data_ptr(), offsets.contiguous().data_ptr(),
+            w.data_ptr(), xf.data_ptr(), k, n, d, out.data_ptr(),
+            _stream(x.device))
+        rmatvec.launches += 1
+    cuda_build.check(code, "graph_rmatvec launch")
+    return out
+
+
+rmatvec.launches = 0
+
+
+def rmatvec_plain(knn_idx: torch.Tensor, weights: torch.Tensor,
+                  x: torch.Tensor, n: int | None = None, block: int = 2048
+                  ) -> torch.Tensor:
+    """The plain PyTorch version of ``rmatvec``: the reference's segment
+    sum (``sctools_tpu/ops/graph.py:_knn_rmatvec_segsum``) with
+    ``index_add_``, in blocks of rows; ids outside ``[0, n)`` go to a
+    dropped bin n."""
+    rows, k = knn_idx.shape
+    n = rows if n is None else int(n)
+    ids = knn_idx.long()
+    dead = (ids < 0) | (ids >= n)
+    seg = torch.where(dead, n, ids)
+    w = torch.where(dead, 0.0, weights.float())
+    xf = x.float()
+    d = xf.shape[1]
+    out = torch.zeros((n + 1, d), dtype=torch.float32, device=x.device)
+    for r0 in range(0, rows, block):
+        contrib = w[r0:r0 + block, :, None] * xf[r0:r0 + block, None, :]
+        out.index_add_(0, seg[r0:r0 + block].reshape(-1),
+                       contrib.reshape(-1, d))
+    return out[:n]
 
 
 # ----------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """k-nearest-neighbour graph: ``neighbors.knn``.
 
-Counterpart of ``sctools_tpu/ops/knn.py``.  The search is exact and
-brute force, through the fused distance + top-k of ``knn_kernel``: the
-CUDA kernel on the card, its plain version on the CPU, so the full N×N
-distance matrix never exists.  ``refine`` re-ranks a wider coarse
-search (e.g. under the bf16 matmul policy) exactly in float32.
+Counterpart of ``sctools_tpu/ops/knn.py``.  The search is brute force,
+through the fused distance + top-k of ``knn_kernel``: the CUDA kernel
+on the card, its plain version on the CPU, so the full N×N distance
+matrix never exists.  ``config.knn_impl`` picks the merge: exact
+(``knn_select``, the default) or binned (``knn_binned`` under
+``"pallas_binned"``, approximate once there are more candidates than
+``config.knn_bins``).  ``refine`` re-ranks a wider coarse search (e.g.
+under the bf16 matmul policy or the binned merge) exactly in float32.
 
 ``knn_numpy`` and ``recall_at_k`` are the float64 oracle and the recall
 metric, copied so that the port needs nothing of the reference.
@@ -19,7 +22,7 @@ from ..config import config, resolve_device, round_up, true_f32
 from ..data.dataset import CellData
 from ..data.sparse import SparseCells
 from ..registry import register
-from .knn_kernel import knn_select
+from .knn_kernel import knn_binned, knn_select
 
 
 def _prep(points: torch.Tensor, metric: str, dtype: torch.dtype
@@ -46,17 +49,25 @@ def knn_arrays(query: torch.Tensor, cand: torch.Tensor, *, k: int = 15,
     lower candidate id.  ``exclude_self`` drops the pair of equal ids
     (use only when query is cand).  Scores follow
     ``config.matmul_dtype``; ``refine > 0`` searches ``max(k, refine)``
-    candidates and re-ranks them exactly in float32."""
+    candidates and re-ranks them exactly in float32.  Under
+    ``knn_impl="pallas_binned"`` the search keeps one candidate per bin
+    of ``config.knn_bins`` (ties to the lower bin) and raises when the
+    search width exceeds ``knn_bins``."""
     if metric not in ("cosine", "euclidean"):
         raise ValueError(f"unknown metric {metric!r}")
-    config.resolved_knn_impl()
+    impl = config.resolved_knn_impl()
     n_query = n_query or query.shape[0]
     n_cand = n_cand or cand.shape[0]
     k_search = max(k, refine) if refine else k
     mm = config.matmul_torch_dtype()
-    vals, idx = knn_select(_prep(query[:n_query], metric, mm),
-                           _prep(cand[:n_cand], metric, mm), k=k_search,
-                           metric=metric, exclude_self=exclude_self)
+    q = _prep(query[:n_query], metric, mm)
+    c = _prep(cand[:n_cand], metric, mm)
+    if impl == "binned":
+        vals, idx = knn_binned(q, c, k=k_search, n_bins=config.knn_bins,
+                               metric=metric, exclude_self=exclude_self)
+    else:
+        vals, idx = knn_select(q, c, k=k_search, metric=metric,
+                               exclude_self=exclude_self)
     if refine:
         idx, dist = _refine(query[:n_query], cand[:n_cand], idx, k=k,
                             metric=metric)

@@ -8,6 +8,13 @@ On the CPU each wrapper runs its kernel's plain version.  Tolerances:
 * ``matvec``: rtol 1e-5, atol 1e-6 — float32 sums over the k slots in
   another order than the Pallas window sweep (pallas_graph.py:46-52);
   the plain version against the XLA twin, the same (einsum order);
+* ``rmatvec``: rtol 1e-5, atol 1e-6 against the Pallas kernel and the
+  segment sum, on graphs with -1 ids, repeated ids, destinations without
+  edges, a hub with more than k incoming edges and rectangular n (the
+  same float32 terms summed in another order); adjointness ``<P x, y> =
+  <x, Pᵀ y>`` with both inner products summed in float64, within 1e-5
+  of the sum of the terms' magnitudes (the reference holds 5e-3
+  absolute, tests/test_pallas_graph.py:92-104);
 * ``jaccard``: exact — integer counts and one IEEE division, on graphs
   with -1 padding and duplicate ids;
 * ``tsne_repulsion``: forces rtol 1e-5 with atol 1e-6·max_i |y_i|·Σ_j
@@ -106,6 +113,73 @@ def test_knn_matvec_goes_through_the_wrapper():
     a = port_graph.knn_matvec(*_t(idx, w, x))
     b = GK.matvec_plain(*_t(idx, w, x))
     assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ rmatvec
+
+
+def _rmatvec_graph(n=384, k=11, d=7, seed=10):
+    """-1 ids, a repeated id inside lists, destinations without edges
+    (ids only below n - 40) and a hub (id 3) with ~n/2 incoming edges,
+    far more than k."""
+    idx, w, x = _graph(n=n, k=k, d=d, seed=seed)
+    idx = np.where(idx >= n - 40, idx - 40, idx).astype(np.int32)
+    idx[::2, 0] = 3
+    idx[::5, 2] = idx[::5, 1]
+    return idx, w, x
+
+
+def test_rmatvec_matches_pallas_kernel():
+    idx, w, x = _rmatvec_graph()
+    with ref_configure(graph_impl="pallas"):
+        ref = np.asarray(PG.rmatvec(jnp.asarray(idx), jnp.asarray(w),
+                                    jnp.asarray(x), block=128))
+    out = GK.rmatvec(*_t(idx, w, x)).numpy()
+    np.testing.assert_allclose(out, ref, **MATVEC)
+    assert (out[-40:] == 0).all()  # no incoming edges
+    assert (idx == 3).sum() > idx.shape[1]
+
+
+@pytest.mark.parametrize("n", [384, 500, 300])
+def test_rmatvec_matches_segment_sum(n):
+    """Square and rectangular: more outputs than rows (the extra ones
+    get zeros) and fewer (ids >= n add nothing)."""
+    idx, w, x = _rmatvec_graph()
+    ref = np.asarray(ref_graph._knn_rmatvec_segsum(
+        jnp.asarray(idx), jnp.asarray(w), jnp.asarray(x), n=n))
+    out = port_graph.knn_rmatvec(*_t(idx, w, x), n=n).numpy()
+    assert out.shape == (n, x.shape[1])
+    np.testing.assert_allclose(out, ref, **MATVEC)
+    np.testing.assert_allclose(
+        GK.rmatvec_plain(*_t(idx, w, x), n=n, block=100).numpy(), ref,
+        **MATVEC)
+
+
+def test_rmatvec_is_the_adjoint_of_matvec():
+    idx, w, x = _rmatvec_graph(d=5)
+    y = np.random.default_rng(11).standard_normal(x.shape).astype(
+        np.float32)
+    px = GK.matvec(*_t(idx, w, x)).numpy().astype(np.float64)
+    pty = GK.rmatvec(*_t(idx, w, y)).numpy().astype(np.float64)
+    lhs = (px * y).sum()
+    rhs = (x.astype(np.float64) * pty).sum()
+    scale = (np.abs(px) * np.abs(y)).sum() + (np.abs(x) * np.abs(pty)).sum()
+    assert abs(lhs - rhs) <= 1e-5 * scale
+
+
+def test_rmatvec_order_is_stable_by_destination():
+    idx, _, _ = _rmatvec_graph(n=200, k=6)
+    edges, offsets = GK.rmatvec_order(torch.from_numpy(idx), n=150)
+    flat = idx.reshape(-1)
+    keep = (flat >= 0) & (flat < 150)
+    assert edges.dtype == offsets.dtype == torch.int32
+    assert offsets.shape == (151,) and int(offsets[-1]) == keep.sum()
+    e = edges.numpy()
+    np.testing.assert_array_equal(flat[e], np.sort(flat[keep],
+                                                   kind="stable"))
+    for c in (3, 7, 149):  # each run ascending in (r, t)
+        run = e[offsets[c]:offsets[c + 1]]
+        np.testing.assert_array_equal(run, np.flatnonzero(flat == c))
 
 
 # ------------------------------------------------------------- jaccard
@@ -218,13 +292,15 @@ def _calls():
     y = torch.from_numpy(x[:, :2].copy())
     return {
         "matvec": (GK.matvec, lambda t=ti: GK.matvec(t, tw, tx)),
+        "rmatvec": (GK.rmatvec, lambda t=ti: GK.rmatvec(t, tw, tx)),
         "jaccard": (GK.jaccard, lambda t=ti: GK.jaccard(t)),
         "tsne_repulsion": (GK.tsne_repulsion,
                            lambda t=y: GK.tsne_repulsion(t, 64)),
     }
 
 
-@pytest.mark.parametrize("name", ["matvec", "jaccard", "tsne_repulsion"])
+@pytest.mark.parametrize("name", ["matvec", "rmatvec", "jaccard",
+                                  "tsne_repulsion"])
 def test_cpu_tensor_runs_the_plain_version_and_counts_no_launch(name):
     wrapper, call = _calls()[name]
     before = wrapper.launches
@@ -237,6 +313,8 @@ def test_wrappers_raise_on_other_devices_and_impls():
     meta = [t.to("meta") for t in (idx, w, x)]
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         GK.matvec(*meta)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        GK.rmatvec(*meta)
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         GK.jaccard(meta[0])
     with pytest.raises(ValueError, match="runs on cpu or cuda"):

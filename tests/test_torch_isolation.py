@@ -81,9 +81,10 @@ def test_kernel_wrapper_has_no_exception_handler():
                    for n in ast.walk(tree))
 
 
-@pytest.mark.parametrize("name", ["matvec", "jaccard", "tsne_repulsion"])
+@pytest.mark.parametrize("name", ["matvec", "rmatvec", "jaccard",
+                                  "tsne_repulsion", "knn_binned"])
 def test_graph_kernel_wrapper_has_no_exception_handler(name):
-    wrapper = getattr(graph_kernels, name)
+    wrapper = getattr(graph_kernels, name, None) or getattr(knn_kernel, name)
     tree = ast.parse(inspect.getsource(wrapper))
     assert not any(isinstance(n, (ast.Try, ast.ExceptHandler))
                    for n in ast.walk(tree))
@@ -92,14 +93,17 @@ def test_graph_kernel_wrapper_has_no_exception_handler(name):
 
 @pytest.mark.parametrize("op", [
     "graph.connectivities", "graph.jaccard", "graph.diffusion_operator",
-    "impute.magic", "graph.reorder", "graph.restore_order", "embed.tsne"])
+    "impute.magic", "graph.reorder", "graph.restore_order", "embed.tsne",
+    "embed.spectral", "embed.diffmap", "dpt.pseudotime", "palantir.run",
+    "metacells.seacells", "metacells.aggregate"])
 def test_graph_ops_default_to_the_card_and_raise_without_one(op):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None resolves to it")
     ds = sctt.data.synthetic.synthetic_counts(16, 8, seed=0)
     ds = graph_from_numpy(
         ds, np.tile(np.arange(3, dtype=np.int32), (16, 1)),
-        np.zeros((16, 3), np.float32), knn_k=3)
+        np.zeros((16, 3), np.float32), knn_k=3).with_obs(
+        metacell=np.zeros(16, np.int32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sctt.apply(op, ds)
 
@@ -130,10 +134,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_registry_is_separate_from_the_reference():
     assert sctt.names() == [
-        "embed.tsne", "graph.connectivities", "graph.diffusion_operator",
+        "dpt.pseudotime", "embed.diffmap", "embed.spectral", "embed.tsne",
+        "graph.connectivities", "graph.diffusion_operator",
         "graph.jaccard", "graph.reorder", "graph.restore_order",
-        "hvg.select", "impute.magic", "neighbors.knn",
-        "normalize.library_size", "normalize.log1p", "pca.randomized",
+        "hvg.select", "impute.magic", "metacells.aggregate",
+        "metacells.seacells", "neighbors.knn", "normalize.library_size",
+        "normalize.log1p", "palantir.run", "pca.randomized",
         "qc.per_cell_metrics"]
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     with pytest.raises(NotImplementedError):

@@ -16,7 +16,18 @@ cosine.  Where two candidates' scores lie within
 the tolerance of each other, the two libraries' last bits may order
 them differently: an id may differ only at such a near-tie.  A fixture
 of duplicated points pins the exact tie order: equal scores go to the
-lower candidate id."""
+lower candidate id.
+
+The binned merge (``knn_kernel.knn_binned_plain``, the CPU side of
+``knn_impl="pallas_binned"``) is held against the reference's binned
+Pallas kernel in interpret mode at the same tolerances, with one more
+allowance: an id may also differ where the survivor of its bin (the
+port's ``bin_survivors``) lies within the tolerance of its score, a
+near-tie inside one bin.  Where every candidate owns its bin, the
+binned merge is bitwise the exact one; on integer points with exact
+ties inside and across bins, the ids are identical to the reference's
+(ties to the lowest column inside a bin, to the lowest bin in the final
+selection)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -59,15 +70,21 @@ def _score(dist, metric):
     return dist if metric == "cosine" else dist.astype(np.float64) ** 2
 
 
-def assert_same_neighbours(p_idx, p_dist, r_idx, r_dist, metric, atol):
-    """Scores within ``atol``; ids identical except at near-ties."""
+def assert_same_neighbours(p_idx, p_dist, r_idx, r_dist, metric, atol,
+                           survivors=None):
+    """Scores within ``atol``; ids identical except at near-ties.  For
+    the binned merge, ``survivors`` is ``(scores (n, n_bins), n_bins)``
+    of every bin: an id may also differ where its bin's survivor lies
+    within ``atol`` of its score."""
     ps, rs = _score(p_dist, metric), _score(r_dist, metric)
     np.testing.assert_allclose(ps, rs, atol=atol, rtol=0)
     for i, j in zip(*np.nonzero(p_idx != r_idx)):
         at = np.nonzero(r_idx[i] == p_idx[i, j])[0]
         swapped = len(at) and abs(rs[i, at[0]] - ps[i, j]) <= atol
         boundary = abs(ps[i, j] - rs[i, -1]) <= atol
-        assert swapped or boundary, (
+        in_bin = survivors is not None and abs(
+            survivors[0][i, p_idx[i, j] % survivors[1]] - ps[i, j]) <= atol
+        assert swapped or boundary or in_bin, (
             f"row {i} slot {j}: id {p_idx[i, j]} vs {r_idx[i, j]}, scores "
             f"{ps[i]} vs {rs[i]}")
 
@@ -170,7 +187,133 @@ def test_plain_version_blocking_does_not_change_the_result():
     torch.testing.assert_close(a[0], b[0], atol=1e-6, rtol=0)
 
 
-def test_only_auto_impl_is_ported():
-    pts = torch.zeros((4, 3))
-    with configure(knn_impl="pallas_binned"), pytest.raises(ValueError):
+@pytest.mark.parametrize("impl", ["auto", "pallas", "pallas_binned", "xla"])
+def test_knn_impl_routes_to_its_merge(impl, monkeypatch):
+    """"auto" and "pallas" reach the exact merge, "pallas_binned" the
+    binned one (with ``config.knn_bins``); "xla" is not ported and
+    raises."""
+    pts = torch.from_numpy(gaussian_blobs(40, 3, seed=1)[0])
+    calls = []
+    for name in ("knn_select", "knn_binned"):
+        real = getattr(port_knn, name)
+        monkeypatch.setattr(port_knn, name, lambda *a, _n=name, _f=real,
+                            **kw: calls.append((_n, kw)) or _f(*a, **kw))
+    with configure(knn_impl=impl, knn_bins=200):
+        if impl == "xla":
+            with pytest.raises(ValueError, match="xla"):
+                port_knn.knn_arrays(pts, pts, k=2)
+            return
         port_knn.knn_arrays(pts, pts, k=2)
+    want = "knn_binned" if impl == "pallas_binned" else "knn_select"
+    assert [c[0] for c in calls] == [want]
+    if want == "knn_binned":
+        assert calls[0][1]["n_bins"] == 200
+
+
+# --------------------------------------------------------- binned merge
+
+
+def _ref_binned(pts, mm="float32", **kw):
+    with ref_configure(matmul_dtype=mm):
+        idx, dist = pallas_knn_arrays(pts, pts, merge="binned", **kw)
+    return np.asarray(idx)[:len(pts)], np.asarray(dist)[:len(pts)]
+
+
+def _port_binned(pts, k, n_bins, metric="cosine", mm=torch.float32, **kw):
+    q = port_knn._prep(torch.from_numpy(pts), metric, mm)
+    vals, idx = knn_kernel.knn_binned(q, q, k=k, n_bins=n_bins,
+                                      metric=metric, **kw)
+    surv, _ = knn_kernel.bin_survivors(
+        q, q, n_bins=knn_kernel.binned_bins(k, n_bins), metric=metric,
+        exclude_self=kw.get("exclude_self", False))
+    dist = (1.0 - vals) if metric == "cosine" else torch.sqrt(
+        torch.clamp(-vals, min=0.0))
+    surv = (1.0 - surv) if metric == "cosine" else -surv
+    return idx.numpy(), dist.numpy(), surv.numpy()
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_binned_is_the_exact_merge_when_every_candidate_owns_a_bin(metric):
+    pts = _blobs(metric, 300, 16, n_clusters=5, spread=0.3, seed=3)
+    q = port_knn._prep(torch.from_numpy(pts), metric, torch.float32)
+    for excl in (False, True):
+        b = knn_kernel.knn_binned(q, q, k=10, n_bins=384, metric=metric,
+                                  exclude_self=excl)
+        e = knn_kernel.knn_select(q, q, k=10, metric=metric,
+                                  exclude_self=excl)
+        assert torch.equal(b[0], e[0]) and torch.equal(b[1], e[1])
+    r_idx, _ = _ref_binned(pts, k=10, metric=metric, n_bins=384)
+    r_exact, _ = _ref(pts, pts, "float32", k=10, metric=metric)
+    np.testing.assert_array_equal(r_idx, r_exact[:300])
+
+
+@pytest.mark.parametrize("metric,exclude_self,mm", [
+    ("cosine", False, "float32"), ("euclidean", True, "float32"),
+    ("cosine", True, "bfloat16")])
+def test_binned_matches_pallas_kernel(metric, exclude_self, mm):
+    """n = 3072 against 512 bins: six candidates share every bin."""
+    pts = _blobs(metric, 3072, 16, n_clusters=5, spread=0.3, seed=3)
+    kw = dict(k=10, metric=metric, exclude_self=exclude_self)
+    r_idx, r_dist = _ref_binned(pts, mm, n_bins=512, **kw)
+    with configure(matmul_dtype=mm):
+        p_idx, p_dist, surv = _port_binned(
+            pts, n_bins=512, mm=port_knn.config.matmul_torch_dtype(), **kw)
+    atol = ATOL[mm]
+    assert_same_neighbours(p_idx, p_dist, r_idx, r_dist, metric, atol,
+                           survivors=(_score(surv, metric), 512))
+    assert (p_idx == r_idx).mean() > 0.99
+    if exclude_self:
+        assert not (p_idx == np.arange(3072)[:, None]).any()
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_binned_ties_go_to_the_lowest_column_then_the_lowest_bin(metric):
+    """Integer points, ~20 copies of each: exact equal scores inside a
+    bin and across bins.  The ids must be the reference's exactly."""
+    rng = np.random.default_rng(12)
+    base = rng.integers(-3, 4, size=(40, 8)).astype(np.float32)
+    pts = base[rng.integers(0, 40, size=800)]
+    r_idx, r_dist = _ref_binned(pts, k=12, metric=metric, n_bins=128)
+    p_idx, p_dist, _ = _port_binned(pts, 12, 128, metric)
+    np.testing.assert_array_equal(p_idx, r_idx)
+    np.testing.assert_allclose(_score(p_dist, metric),
+                               _score(r_dist, metric), atol=1e-5, rtol=0)
+    # among equal scores the bins ascend, not the ids
+    same = p_dist[:, 1:] == p_dist[:, :-1]
+    bins = p_idx % 128
+    assert same.any() and (bins[:, 1:][same] > bins[:, :-1][same]).all()
+    assert (p_idx[:, 1:][same] < p_idx[:, :-1][same]).any()
+
+
+def test_binned_bins_round_up_and_k_above_n_bins_raises():
+    assert knn_kernel.binned_bins(15, 1024) == 1024
+    assert knn_kernel.binned_bins(15, 300) == 384
+    assert knn_kernel.binned_bins(1, 1) == 128
+    q = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="n_bins"):
+        knn_kernel.knn_binned(q, q, k=20, n_bins=16)
+    with configure(knn_impl="pallas_binned", knn_bins=16), \
+            pytest.raises(ValueError, match="n_bins"):
+        port_knn.knn_arrays(q, q, k=4, refine=20)
+    # the rounded bins are what the merge uses: 300 asked, 384 used
+    pts = _blobs("cosine", 1000, 8, n_clusters=3, spread=0.3, seed=4)
+    r_idx, _ = _ref_binned(pts, k=5, n_bins=300)
+    p_idx, _, _ = _port_binned(pts, 5, 300)
+    assert (p_idx == r_idx).mean() > 0.99
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_binned_through_knn_arrays_with_refine(metric):
+    pts = _blobs(metric, 2000, 12, n_clusters=3, spread=0.25, seed=9)
+    kw = dict(k=10, metric=metric, refine=32, n_query=2000, n_cand=2000)
+    with ref_configure(knn_impl="pallas_binned", knn_bins=256):
+        r_idx, r_dist = ref_knn.knn_arrays(jnp.asarray(pts),
+                                           jnp.asarray(pts), **kw)
+    with configure(knn_impl="pallas_binned", knn_bins=256):
+        p_idx, p_dist = _port(pts, pts, "float32", **kw)
+    assert p_idx.shape == (2048, 10) and (p_idx[2000:] == -1).all()
+    assert_same_neighbours(p_idx[:2000], p_dist[:2000],
+                           np.asarray(r_idx)[:2000],
+                           np.asarray(r_dist)[:2000], metric, 1e-5)
+    o_idx, _ = port_knn.knn_numpy(pts, pts, k=10, metric=metric)
+    assert port_knn.recall_at_k(p_idx[:2000], o_idx) > 0.98
