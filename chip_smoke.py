@@ -50,7 +50,10 @@ Phases, each printing one JSON line, each fatal on a failed check:
              k or than bins, n_bins 128 to 1024, exact ties); then the
              graph kernels at theirs (-1 ids, empty rows and
              destinations, repeated ids, a hub of 5,000 incoming edges,
-             rectangular rmatvec, k = 1 and 64, odd d, t-SNE dim 1–4);
+             rectangular rmatvec, k = 1 and 64, odd d, t-SNE dim 1–4),
+             and matvec and rmatvec at every width path (d = 1 to 914):
+             a column slice of x gives that slice of the result bit for
+             bit, and an x 4 bytes off alignment the same bits;
 8. kernels — each kernel against its plain version on the card at the
              path's shapes (kNN also at the configs[3] candidate width:
              1.3M points, 65,536 queries; f32 k=15, binned k=15 and
@@ -59,7 +62,11 @@ Phases, each printing one JSON line, each fatal on a failed check:
              yardstick where a single PyTorch call computes the same
              function (timed here and used nowhere in the port) and the
              card's bound (the published peaks and the bound rules are
-             printed on a line of their own).
+             printed on a line of their own).  graph_matvec is timed at
+             each path's width on that path's edges (MAGIC 2000,
+             SEACells 914, spectral 21, Palantir's fates), graph_rmatvec
+             at SEACells' 914 and Palantir's 1; each holds the column-
+             slice identity there too.
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -117,9 +124,10 @@ def sync():
     torch.cuda.synchronize()
 
 
-def cuda_ms(fn, reps: int = 5, warmup: bool = True) -> float:
-    """Median over ``reps`` timed calls of ``fn`` by CUDA events, after
-    one untimed call unless the caller has just made one."""
+def cuda_times(fn, reps: int = 5, warmup: bool = True) -> list:
+    """``reps`` calls of ``fn`` timed one by one by CUDA events (ms,
+    sorted), after one untimed call unless the caller has just made
+    one."""
     import torch
 
     if warmup:
@@ -133,7 +141,12 @@ def cuda_ms(fn, reps: int = 5, warmup: bool = True) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return sorted(times)
+
+
+def cuda_ms(fn, reps: int = 5, warmup: bool = True) -> float:
+    """Median of ``cuda_times``."""
+    return statistics.median(cuda_times(fn, reps, warmup))
 
 
 def peaks_for(name: str) -> tuple[str, dict]:
@@ -383,8 +396,9 @@ def metacells_phase(main: dict, card: str) -> dict:
           "column_sum_max_err": col_err, "purity": pur,
           "knn_graph_purity": pur_graph,
           "counts_total": total, "rmatvec_order_ms": order_ms})
-    return {"idx": idx, "w": w, "x": x, "order_ms": order_ms,
-            "launches": launches["rmatvec"]}
+    return {"idx": idx, "w": w, "x": x, "B": B.contiguous(),
+            "order_ms": order_ms, "launches": launches["rmatvec"],
+            "matvec_launches": launches["matvec"]}
 
 
 def palantir_phase(main: dict, card: str) -> dict:
@@ -401,7 +415,9 @@ def palantir_phase(main: dict, card: str) -> dict:
     import torch
 
     from sctools_tpu_torch import Transform
+    from sctools_tpu_torch.ops import graph as G
     from sctools_tpu_torch.ops import graph_kernels as GK
+    from sctools_tpu_torch.ops import palantir as PL
 
     dev = torch.device(DEVICE)
     data = main["out"]
@@ -441,7 +457,20 @@ def palantir_phase(main: dict, card: str) -> dict:
           "fate_row_sum_max_err": row_err,
           "reached": int((pt < 1).sum()), "evals": [
               float(v) for v in spec.uns["diffmap_evals"][:5]]})
-    return {"launches": launches["rmatvec"]}
+    # the matvec inputs of both paths, for the kernels phase: spectral's
+    # symmetric edges with a start block of its width (15 + 1 + 5), and
+    # Palantir's directed chain with the fate block
+    idx = spec.obsp["knn_indices"][:n]
+    s_edges, _, _ = G._sym_normalized_edges(
+        idx, spec.obsp["connectivities"][:n])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v0 = torch.randn((n, 21), generator=gen, device=dev)
+    ms = PL.multiscale_space(spec.uns["diffmap_evals"].cpu().numpy(),
+                             spec.obsm["X_diffmap"][:n].cpu().numpy())
+    p = PL.directed_chain_arrays(idx, torch.from_numpy(ms).to(dev), pt)
+    return {"launches": launches["rmatvec"], "idx": idx,
+            "spectral": (s_edges, v0, spectral_matvec),
+            "fate": (p, fate.contiguous(), launches["fate_matvec"])}
 
 
 # ----------------------------------------------------------------------
@@ -566,6 +595,35 @@ def graph_phase(data, card: str) -> dict:
             "launches": launches}
 
 
+# Column slices (a, b) of the input, b = None for the last column: they
+# start and end off the vector widths (odd, even, multiples of 4) and
+# cross the kernels' column tiles and slabs (multiples of 64 columns).
+COL_SLICES = ((0, 1), (1, 3), (3, 13), (2, 22), (7, 40), (60, 70),
+              (31, 160), (120, 250), (250, 520), (1000, 1999), (1, None))
+# the widths of graph_edges_phase: each lane-group size and vector width
+EDGE_WIDTHS = (1, 2, 3, 5, 10, 21, 33, 127, 128, 914)
+
+
+def check_slices(fn, x, full, what: str) -> int:
+    """``fn(x[:, a:b].contiguous())`` bitwise ``full[:, a:b]`` (``full =
+    fn(x)``) for every slice of COL_SLICES inside x's width: each output
+    element is one fmaf chain in a fixed order whatever vector width,
+    lane group or slab computes it.  Returns the number of slices."""
+    import torch
+
+    d = x.shape[1]
+    seen = set()
+    for a, b in COL_SLICES:
+        b = d if b is None else min(b, d)
+        if a >= b or (a, b) in seen:
+            continue
+        seen.add((a, b))
+        check(torch.equal(fn(x[:, a:b].contiguous()), full[:, a:b]),
+              f"{what}: columns {a}:{b} of a {d}-wide x differ from those "
+              "columns of the full result")
+    return len(seen)
+
+
 def graph_edges_phase() -> None:
     """The graph kernels against their plain versions at small shapes
     that reach their corners: -1 ids and rows without edges, repeated
@@ -618,6 +676,38 @@ def graph_edges_phase() -> None:
         cases.append({"kernel": "graph_rmatvec", "rows": rows, "k": k,
                       "d": d, "n": n_out, "hub_in_degree": hub,
                       "max_abs_err": err})
+    # both kernels at every width path, with the column-slice identity,
+    # and on an x whose storage starts 4 bytes off (no vector loads)
+    n, k = 3000, 15
+    idx = rng.integers(0, n, (n, k)).astype(np.int32)
+    idx[rng.random((n, k)) < 0.1] = -1
+    idx[::2, 0] = 7  # a hub of 1,500 incoming edges
+    w = rng.random((n, k)).astype(np.float32)
+    ti, tw = (torch.from_numpy(a).to(DEVICE) for a in (idx, w))
+    order = GK.rmatvec_order(ti, n)
+    for d in EDGE_WIDTHS:
+        x = torch.from_numpy(
+            rng.standard_normal((n, d)).astype(np.float32)).to(DEVICE)
+        mv = GK.matvec(ti, tw, x)
+        mv_err = within(mv, GK.matvec_plain(ti, tw, x), 1e-5, 1e-6,
+                        scale=GK.matvec_plain(ti, tw.abs(), x.abs()))
+        rv = GK.rmatvec(ti, tw, x, n, order=order)
+        rv_err = within(rv, GK.rmatvec_plain(ti, tw, x, n), 1e-5, 1e-6,
+                        scale=GK.rmatvec_plain(ti, tw.abs(), x.abs(), n))
+        slices = check_slices(lambda xx: GK.matvec(ti, tw, xx), x, mv,
+                              "matvec")
+        slices += check_slices(
+            lambda xx: GK.rmatvec(ti, tw, xx, n, order=order), x, rv,
+            "rmatvec")
+        off = torch.empty(n * d + 1, device=DEVICE)[1:].view(n, d)
+        off.copy_(x)
+        check(torch.equal(GK.matvec(ti, tw, off), mv)
+              and torch.equal(GK.rmatvec(ti, tw, off, n, order=order), rv),
+              f"d={d}: an x 4 bytes off alignment gives other bits")
+        cases.append({"kernel": "graph_matvec+graph_rmatvec", "n": n,
+                      "k": k, "d": d, "matvec_max_abs_err": mv_err,
+                      "rmatvec_max_abs_err": rv_err,
+                      "column_slices_bitwise": slices})
     for n, dim in ((300, 2), (257, 1), (1000, 3), (513, 4), (1, 2)):
         y = torch.from_numpy(
             (rng.standard_normal((n, dim)) * 3).astype(np.float32)).to(DEVICE)
@@ -950,6 +1040,22 @@ def edge_list_csr(idx, w, transpose: bool = False):
     return coo.coalesce().to_sparse_csr()
 
 
+def path_matvec_rows(meta: dict, pal: dict, card: str, peaks: dict
+                     ) -> list:
+    """``graph_matvec`` at the widths of its other paths, each on that
+    path's own edge list: SEACells' kernel and B (914 columns),
+    ``embed.spectral``'s symmetric edges and a start block of 21
+    columns, Palantir's directed chain and the fate block."""
+    rows = [matvec_row(meta["idx"], meta["w"], meta["B"],
+                       meta["matvec_launches"], "metacells.seacells Kmat",
+                       card, peaks)]
+    for (w, x, launches), what in ((pal["spectral"], "embed.spectral"),
+                                   (pal["fate"], "palantir fates")):
+        rows.append(matvec_row(pal["idx"], w, x, launches, what, card,
+                               peaks))
+    return rows
+
+
 def rmatvec_rows(meta: dict, palantir_launches: int, card: str,
                  peaks: dict) -> list:
     """``graph_rmatvec`` against its plain version at the metacells
@@ -976,11 +1082,14 @@ def rmatvec_rows(meta: dict, palantir_launches: int, card: str,
         want = GK.rmatvec_plain(idx, w, xx, n)
         err = within(got, want, 1e-5, 1e-6,
                      scale=GK.rmatvec_plain(idx, w.abs(), xx.abs(), n))
+        slices = check_slices(
+            lambda x1: GK.rmatvec(idx, w, x1, n, order=order), xx, got,
+            f"rmatvec ({what})")
         with true_f32():
             lib_err = float((torch.sparse.mm(csr, xx) - want).abs().max())
         del got, want
-        ms = cuda_ms(lambda: GK.rmatvec(idx, w, xx, n, order=order),
-                     warmup=False)
+        reps = cuda_times(lambda: GK.rmatvec(idx, w, xx, n, order=order),
+                          warmup=False)
         plain_ms = cuda_ms(lambda: GK.rmatvec_plain(idx, w, xx, n))
         with true_f32():
             library_ms = cuda_ms(lambda: torch.sparse.mm(csr, xx))
@@ -991,13 +1100,58 @@ def rmatvec_rows(meta: dict, palantir_launches: int, card: str,
             "source": "sctools_tpu_torch/csrc/graph_rmatvec.cu",
             "replaces": "sctools_tpu/ops/pallas_graph.py:200",
             "shape": f"{n}x{k} edges -> x {n}x{d} float32 ({what})",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err,
+            "ms": statistics.median(reps), "ms_reps": reps,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.sparse.mm(CSR P^T, dense x)",
             "library_max_abs_err": lib_err,
             "order_build_ms": meta["order_ms"], "bound_ms": bms,
-            "bound_by": by, "card": card})
+            "bound_by": by, "column_slices_bitwise": slices, "card": card})
     return rows
+
+
+def matvec_row(idx, w, x, launches: int, what: str, card: str,
+               peaks: dict, **extra) -> dict:
+    """``graph_matvec`` against its plain version on one path's edge list
+    and input, with times (CUDA events, the kernel's five repetitions
+    kept): kernel, plain version, ``torch.sparse.mm`` on the CSR P in
+    true float32, and the bound."""
+    import torch
+
+    from sctools_tpu_torch.config import true_f32
+    from sctools_tpu_torch.ops import graph_kernels as GK
+
+    n, k = idx.shape
+    d = x.shape[1]
+    got = GK.matvec(idx, w, x)
+    want = GK.matvec_plain(idx, w, x)
+    # signed terms cancel: hold each output against Σ_t |w|·|x|
+    err = within(got, want, 1e-5, 1e-6,
+                 scale=GK.matvec_plain(idx, w.abs(), x.abs()))
+    slices = check_slices(lambda xx: GK.matvec(idx, w, xx), x, got,
+                          f"matvec ({what})")
+    csr = edge_list_csr(idx, w)
+    with true_f32():
+        lib_err = float((torch.sparse.mm(csr, x) - want).abs().max())
+    del got, want
+    reps = cuda_times(lambda: GK.matvec(idx, w, x), warmup=False)
+    plain_ms = cuda_ms(lambda: GK.matvec_plain(idx, w, x))
+    with true_f32():
+        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x))
+    edges = int((idx >= 0).sum())
+    bms, by = bound(2.0 * edges * d, (x.shape[0] + n) * d * 4.0 + n * k * 8.0,
+                    peaks)
+    return {
+        "name": "graph_matvec", "route": "cuda",
+        "source": "sctools_tpu_torch/csrc/graph_matvec.cu",
+        "replaces": "sctools_tpu/ops/pallas_graph.py:172",
+        "shape": f"{n}x{k} edges -> x {x.shape[0]}x{d} float32 ({what})",
+        "launches": launches, "max_abs_err": err,
+        "ms": statistics.median(reps), "ms_reps": reps,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "torch.sparse.mm(CSR P, dense x)",
+        "library_max_abs_err": lib_err, "bound_ms": bms, "bound_by": by,
+        "column_slices_bitwise": slices, "card": card, **extra}
 
 
 def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
@@ -1006,14 +1160,12 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
     (``ms``; ``ms_natural`` in the caller's order), with times."""
     import torch
 
-    from sctools_tpu_torch.config import true_f32
     from sctools_tpu_torch.ops import graph as G
     from sctools_tpu_torch.ops import graph_kernels as GK
 
     idx, P, x, y = graph["idx"], graph["P"], graph["x"], graph["y"]
     launches = graph["launches"]
     n, k = idx.shape
-    d = x.shape[1]
     perm = torch.from_numpy(G.reorder_permutation(idx)).to(idx.device)
     r_idx = remap_rows(idx, perm)
     r_P, r_x = P[perm].contiguous(), x[perm].contiguous()
@@ -1025,32 +1177,10 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
               "layout_natural_then_rcm": layout}
     rows = []
 
-    got = GK.matvec(r_idx, r_P, r_x)
-    want = GK.matvec_plain(r_idx, r_P, r_x)
-    err = within(got, want, 1e-5, 1e-6)
-    csr = edge_list_csr(r_idx, r_P)
-    with true_f32():
-        lib_err = float((torch.sparse.mm(csr, r_x) - want).abs().max())
-    del got, want
-    ms = cuda_ms(lambda: GK.matvec(r_idx, r_P, r_x), warmup=False)
     ms_nat = cuda_ms(lambda: GK.matvec(idx, P, x))
-    plain_ms = cuda_ms(lambda: GK.matvec_plain(r_idx, r_P, r_x))
-    with true_f32():
-        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, r_x))
-    bms, by = bound(2.0 * edges * d, (x.shape[0] + n) * d * 4.0 + n * k * 8.0,
-                    peaks)
-    rows.append({
-        "name": "graph_matvec",
-        "source": "sctools_tpu_torch/csrc/graph_matvec.cu",
-        "replaces": "sctools_tpu/ops/pallas_graph.py:172",
-        "shape": f"{n}x{k} edges -> x {n}x{d} float32 (MAGIC t=3)",
-        "launches": launches["matvec"], "max_abs_err": err, "ms": ms,
-        "ms_natural": ms_nat, "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        "library": "torch.sparse.mm(CSR P, dense x)",
-        "library_max_abs_err": lib_err, "bound_ms": bms, "bound_by": by,
-        **common})
-    del csr
+    rows.append(matvec_row(r_idx, r_P, r_x, launches["matvec"], "MAGIC t=3",
+                           card, peaks, ms_natural=ms_nat,
+                           layout_natural_then_rcm=layout))
 
     check(torch.equal(GK.jaccard(r_idx), GK.jaccard_plain(r_idx)),
           "jaccard differs from jaccard_plain at the path's shape")
@@ -1165,6 +1295,7 @@ def main() -> int:
     peaks = bounds_phase()
     kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks)
     kernels += graph_kernels_phase(graph, card, peaks)
+    kernels += path_matvec_rows(meta, pal, card, peaks)
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -167,6 +167,35 @@ def test_rmatvec_is_the_adjoint_of_matvec():
     assert abs(lhs - rhs) <= 1e-5 * scale
 
 
+# The widths at which the CUDA kernels take their lane-group, scalar,
+# float2 and float4 column paths; on the CPU the wrappers run the plain
+# versions, held here against the Pallas kernels at each width.
+WIDTHS = [1, 2, 10, 21, 33, 130]
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_matvec_at_each_width_matches_pallas_kernel(d):
+    idx, w, x = _graph(n=256, d=d, seed=20 + d)
+    with ref_configure(graph_impl="pallas"):
+        ref = np.asarray(PG.matvec(jnp.asarray(idx), jnp.asarray(w),
+                                   jnp.asarray(x), block=128))
+    out = GK.matvec(*_t(idx, w, x)).numpy()
+    assert out.shape == (256, d)
+    np.testing.assert_allclose(out, ref, **MATVEC)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_rmatvec_at_each_width_matches_pallas_kernel(d):
+    idx, w, x = _rmatvec_graph(n=256, d=d, seed=40 + d)
+    with ref_configure(graph_impl="pallas"):
+        ref = np.asarray(PG.rmatvec(jnp.asarray(idx), jnp.asarray(w),
+                                    jnp.asarray(x), block=128))
+    out = GK.rmatvec(*_t(idx, w, x)).numpy()
+    assert out.shape == (256, d)
+    np.testing.assert_allclose(out, ref, **MATVEC)
+    assert (out[-40:] == 0).all()  # no incoming edges
+
+
 def test_rmatvec_order_is_stable_by_destination():
     idx, _, _ = _rmatvec_graph(n=200, k=6)
     edges, offsets = GK.rmatvec_order(torch.from_numpy(idx), n=150)
