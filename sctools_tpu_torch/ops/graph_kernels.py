@@ -31,6 +31,8 @@ matters for speed, since a reordered graph gathers from nearby rows.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .. import cuda_build
@@ -76,7 +78,17 @@ def _kernel_device(t: torch.Tensor, what: str) -> bool:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    # the raw handle, without building a torch.cuda.Stream object
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _guard(device: torch.device):
+    """Makes ``device`` current for a launch, or nothing when it already
+    is: entering a device guard takes as much host time as a narrow
+    matvec takes on the card."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 # ----------------------------------------------------------------------
@@ -111,7 +123,7 @@ def matvec(knn_idx: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
     if n == 0 or d == 0:
         return out
     lib = cuda_build.library()
-    with torch.cuda.device(x.device):
+    with _guard(x.device):
         code = lib.sct_graph_matvec(
             idx.data_ptr(), w.data_ptr(), xf.data_ptr(), n, k, xf.shape[0],
             d, out.data_ptr(), _stream(x.device))
@@ -214,7 +226,7 @@ def rmatvec(knn_idx: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
     if n == 0 or d == 0:
         return out
     lib = cuda_build.library()
-    with torch.cuda.device(x.device):
+    with _guard(x.device):
         code = lib.sct_graph_rmatvec(
             edges.contiguous().data_ptr(), offsets.contiguous().data_ptr(),
             w.data_ptr(), xf.data_ptr(), k, n, d, out.data_ptr(),
