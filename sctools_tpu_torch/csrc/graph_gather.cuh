@@ -23,7 +23,7 @@
 //
 // Design.
 // * d <= 4 (narrow_kernel): one lane per output row, all columns.  A
-//   warp stages the pairs of its 32 rows, one window of WINDOW
+//   warp stages the pairs of its 32 rows, one window of 256 or 512
 //   consecutive pairs at a time, all 32 lanes loading (source, weight,
 //   x values) of any row's pairs, so a hub's pairs are loaded 32 wide;
 //   then each lane sums its own row's pairs from shared memory.
@@ -55,8 +55,13 @@
 namespace sct_gather {
 
 constexpr int THREADS = 128;
-constexpr int NARROW_D = 4;   // widths summed by one lane per row
-constexpr int WINDOW = 256;   // pairs a warp stages at a time (narrow)
+constexpr int NARROW_D = 4;  // widths summed by one lane per row
+
+// pairs a warp stages at a time in narrow_kernel: a hub's run in few
+// windows, within 32 KB of shared memory a block
+__host__ __device__ constexpr int window_for(int d) {
+  return d <= 2 ? 512 : 256;
+}
 
 // staged pairs per group: two per lane, at least 16
 __host__ __device__ constexpr int chunk_for(int g) {
@@ -104,6 +109,7 @@ __global__ void __launch_bounds__(THREADS)
     narrow_kernel(Pairs pairs, const float* __restrict__ x,
                   float* __restrict__ y, int n) {
   constexpr int WARPS = THREADS / 32;
+  constexpr int WINDOW = window_for(D);
   constexpr int PER = WINDOW / 32;  // pairs a lane stages per window
   __shared__ int s_src[WARPS][WINDOW];
   __shared__ float s_w[WARPS][WINDOW];
@@ -152,6 +158,7 @@ __global__ void __launch_bounds__(THREADS)
     __syncwarp();
     const long long lo = list.first > b ? list.first : b;
     const long long hi = end < b + cnt ? end : b + cnt;
+#pragma unroll 4
     for (long long j = lo; j < hi; ++j) {
       const int jj = (int)(j - b);
       if (s_src[warp][jj] < 0) continue;

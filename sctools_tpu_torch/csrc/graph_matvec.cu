@@ -13,75 +13,65 @@
 // Design.  The TPU kernel builds a dense one-hot (rb, cb) weight tile
 // per window of columns and feeds the matrix unit, sweeping a band of
 // windows around the diagonal.  On Hopper a direct gather is the
-// natural form: one block per row stages the row's k (id, weight) pairs
-// in shared memory once, and its threads stride over the d columns, so
-// each read of x[id] is one coalesced row segment (float4 when d % 4 ==
-// 0 and the pointers allow it).  Each output is summed in slot order
-// with fmaf, so a row's result depends only on its own ids, weights and
-// the rows they name: permuting the rows (and remapping the ids) gives
-// the permuted result bit for bit.
+// natural form: the pairs of row r are its k slots (idx[r, t], w[r, t]),
+// an id outside x staged as -1 and skipped, and graph_gather.cuh sums
+// them: a lane per row where d <= 4, else a lane group per row (2 to 16
+// lanes where d is narrow, so few lanes idle at Palantir's d = 10, 16
+// or 32 where it is wide), float2/float4 columns with register blocking,
+// and a slab-major grid that keeps the gathered slice of x in L2.  Each
+// output is summed in slot order with fmaf, so a row's result depends
+// only on its own ids, weights and the rows they name: permuting the
+// rows (and remapping the ids) gives the permuted result bit for bit,
+// and so does any column slice of x.
 //
 // Bound on an H100: bytes.  Each x row read once, y written once, idx
 // and w read once: (nx*d + n*d)*4 + n*k*8 bytes; 2*n*k*d flops are far
-// below the f32 peak.  Without graph.reorder the gathers hit x at
-// random and the kernel reads each x row about k times from HBM once x
-// outgrows the 50 MB L2; after the reorder the neighbours of nearby
-// rows are nearby rows, and L2 serves most of the reuse.
+// below the f32 peak.  The gathers move n*k*d*4 bytes (8.2 GB at MAGIC's
+// d = 2000), from L2 once a slab's slice of x is resident.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "graph_gather.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr int K_MAX = 256;
+// Column tile and L2 slab of the gather (graph_gather.cuh), chosen by
+// graph_kernel_sweep.py on an H100 80GB HBM3 at 700 W, on a random
+// 68,579 x 15 graph: at d = 2000 (MAGIC's width) 64-column tiles with
+// one 17.5 MB tile a slab took 1.20 ms, 32 columns 1.19, 128 columns
+// 1.40, no slabs 2.72; at d = 914 0.77, 0.75, 0.80 and 1.32.  The same
+// sizes as graph_rmatvec's, where 64 columns won clearly at d = 2000.
+constexpr int TILE_COLS = 64;
+constexpr int64_t SLAB_BYTES = 24ll << 20;
 
-template <bool VEC4>
-__global__ void __launch_bounds__(THREADS)
-    matvec_kernel(const int* __restrict__ idx, const float* __restrict__ w,
-                  const float* __restrict__ x, int k, int nx, int d,
-                  float* __restrict__ y) {
-  __shared__ int s_id[K_MAX];
-  __shared__ float s_w[K_MAX];
-  const int64_t r = blockIdx.x;
-  for (int t = threadIdx.x; t < k; t += THREADS) {
-    const int id = idx[r * k + t];
-    s_id[t] = (id >= 0 && id < nx) ? id : -1;
-    s_w[t] = w[r * k + t];
+struct SlotPairs {
+  const int* __restrict__ idx;
+  const float* __restrict__ w;
+  int k, nx;
+  __device__ sct_gather::List range(int64_t r) const { return {r * k, k}; }
+  __device__ void load(int64_t j, int& src, float& wt) const {
+    const int id = idx[j];
+    src = id >= 0 && id < nx ? id : -1;
+    wt = w[j];
   }
-  __syncthreads();
-  float* yr = y + r * d;
-  if (VEC4) {
-    const int d4 = d / 4;
-    for (int c = threadIdx.x; c < d4; c += THREADS) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int t = 0; t < k; ++t) {
-        const int id = s_id[t];
-        if (id < 0) continue;
-        const float wt = s_w[t];
-        const float4 v =
-            reinterpret_cast<const float4*>(x + (int64_t)id * d)[c];
-        acc.x = fmaf(wt, v.x, acc.x);
-        acc.y = fmaf(wt, v.y, acc.y);
-        acc.z = fmaf(wt, v.z, acc.z);
-        acc.w = fmaf(wt, v.w, acc.w);
-      }
-      reinterpret_cast<float4*>(yr)[c] = acc;
-    }
-  } else {
-    for (int c = threadIdx.x; c < d; c += THREADS) {
-      float acc = 0.f;
-      for (int t = 0; t < k; ++t) {
-        const int id = s_id[t];
-        if (id < 0) continue;
-        acc = fmaf(s_w[t], x[(int64_t)id * d + c], acc);
-      }
-      yr[c] = acc;
-    }
-  }
-}
+};
 
 }  // namespace
+
+// The launch at a given tile and slab size (the entry point below uses
+// TILE_COLS and SLAB_BYTES; a measurement may try others).
+static int graph_matvec_launch(const void* idx, const void* w,
+                               const void* x, int n, int k, int nx, int d,
+                               void* y, void* stream, int tile_cols,
+                               int64_t slab_bytes) {
+  if (n < 0 || nx < 0 || d < 0 || k < 1 || k > K_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 || d == 0) return 0;
+  const SlotPairs pairs{static_cast<const int*>(idx),
+                        static_cast<const float*>(w), k, nx};
+  return sct_gather::launch(pairs, static_cast<const float*>(x),
+                            static_cast<float*>(y), n, nx, d, tile_cols,
+                            slab_bytes, static_cast<cudaStream_t>(stream));
+}
 
 extern "C" {
 
@@ -90,21 +80,8 @@ extern "C" {
 // success).
 int sct_graph_matvec(const void* idx, const void* w, const void* x, int n,
                      int k, int nx, int d, void* y, void* stream) {
-  if (n < 0 || nx < 0 || d < 0 || k < 1 || k > K_MAX)
-    return (int)cudaErrorInvalidValue;
-  if (n == 0 || d == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                    (uintptr_t)y % 16 == 0;
-  const int* ip = static_cast<const int*>(idx);
-  const float* wp = static_cast<const float*>(w);
-  const float* xp = static_cast<const float*>(x);
-  float* yp = static_cast<float*>(y);
-  if (vec4)
-    matvec_kernel<true><<<n, THREADS, 0, s>>>(ip, wp, xp, k, nx, d, yp);
-  else
-    matvec_kernel<false><<<n, THREADS, 0, s>>>(ip, wp, xp, k, nx, d, yp);
-  return (int)cudaGetLastError();
+  return graph_matvec_launch(idx, w, x, n, k, nx, d, y, stream, TILE_COLS,
+                             SLAB_BYTES);
 }
 
 }  // extern "C"

@@ -37,9 +37,10 @@
 namespace {
 
 // Column tile and L2 slab of the gather (graph_gather.cuh), chosen by
-// measurement at the SEACells shape (68,579 x 914, 1.03M edges): 64
-// columns a tile and one 17.5 MB tile a slab took 0.92 ms, 128 columns
-// 0.96, two tiles a slab (35 MB) 1.04, no slabs 1.43-1.48.
+// graph_kernel_sweep.py on an H100 80GB HBM3 at 700 W, on a random
+// graph of the SEACells shape (68,579 x 914, 1.03M edges): 64 columns
+// a tile and one 17.5 MB tile a slab took 0.92 ms, 128 columns 0.96,
+// two tiles a slab (35 MB) 1.04, no slabs 1.43-1.48.
 constexpr int TILE_COLS = 64;
 constexpr int64_t SLAB_BYTES = 24ll << 20;
 

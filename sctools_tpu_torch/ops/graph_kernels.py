@@ -82,6 +82,15 @@ def _stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor, itself when it is one (no
+    dispatch: a narrow launch costs less on the card than two no-op
+    conversions on the host)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
 def _guard(device: torch.device):
     """Makes ``device`` current for a launch, or nothing when it already
     is: entering a device guard takes as much host time as a narrow
@@ -115,9 +124,9 @@ def matvec(knn_idx: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
     if not _kernel_device(knn_idx, "matvec"):
         return matvec_plain(knn_idx, weights, x)
     n, k = knn_idx.shape
-    idx = knn_idx.to(torch.int32).contiguous()
-    w = weights.to(torch.float32).contiguous()
-    xf = x.to(torch.float32).contiguous()
+    idx = _as(knn_idx, torch.int32)
+    w = _as(weights, torch.float32)
+    xf = _as(x, torch.float32)
     d = xf.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
@@ -219,8 +228,8 @@ def rmatvec(knn_idx: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
             "order must be rmatvec_order(knn_idx, n) on x's device: int32 "
             f"edges and ({n + 1},) int32 offsets")
     k = knn_idx.shape[1]
-    w = weights.to(torch.float32).contiguous()
-    xf = x.to(torch.float32).contiguous()
+    w = _as(weights, torch.float32)
+    xf = _as(x, torch.float32)
     d = xf.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
