@@ -19,7 +19,8 @@
 // against the (x rows + n) * d * 4 bytes that the bound counts.  Once x
 // outgrows the 50 MB L2 those gathers fall on HBM.  At small d the
 // latency of dependent loads bounds it instead, and rmatvec's lists are
-// as long as a destination's in-degree (hundreds at a kNN graph's hubs).
+// as long as a destination's in-degree (far above k at a kNN graph's
+// hubs).
 //
 // Design.
 // * d <= 4 (narrow_kernel): one lane per output row, all columns.  A
@@ -33,8 +34,8 @@
 //   even, floats otherwise, if x's and y's pointers allow it.  A lane
 //   keeps R vector accumulators (register blocking), so one walk over
 //   the staged pairs serves a tile of G * R * VEC = TILE_COLS columns,
-//   and issues the loads of U pairs (16 floats a lane) before their
-//   fmafs.
+//   and puts the loads of U pairs (16 floats a lane) in flight before
+//   their fmafs.
 // * L2 slabs (gather_kernel): the grid runs slab-major.  A slab is the
 //   widest run of column tiles whose slice of x (x rows * slab columns *
 //   4 bytes) fits SLAB_BYTES; every output row sweeps slab 0, then slab
@@ -55,7 +56,6 @@
 namespace sct_gather {
 
 constexpr int THREADS = 128;
-constexpr int NARROW_D = 4;  // widths summed by one lane per row
 
 // pairs a warp stages at a time in narrow_kernel: a hub's run in few
 // windows, within 32 KB of shared memory a block
@@ -100,7 +100,7 @@ __device__ __forceinline__ void fma_into(float w, float4 v, float4& a) {
 }
 
 // ----------------------------------------------------------------------
-// d <= NARROW_D: one lane per row, a warp staging 32 rows' pairs
+// d <= 4: one lane per row, a warp staging 32 rows' pairs
 // ----------------------------------------------------------------------
 
 // Rows 32 * (blockIdx.x * THREADS / 32 + warp) + lane; x and y (rows, D).
@@ -175,7 +175,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ----------------------------------------------------------------------
-// d > NARROW_D: a lane group per row, column tiles, L2 slabs
+// d > 4: a lane group per row, column tiles, L2 slabs
 // ----------------------------------------------------------------------
 
 // Stages pairs first .. first + cnt - 1 (cnt <= chunk_for(G)) into src
@@ -296,7 +296,7 @@ __global__ void __launch_bounds__(THREADS)
 // host side
 // ----------------------------------------------------------------------
 
-// gather_kernel's launch shape for n output rows of width d > NARROW_D
+// gather_kernel's launch shape for n output rows of width d > 4
 // gathered from an x of x_rows rows.
 struct Plan {
   int vec, g, r;   // vector width, lanes per row, vectors per lane
@@ -376,7 +376,7 @@ template <class Pairs>
 int launch(const Pairs& pairs, const float* x, float* y, int n,
            int64_t x_rows, int d, int tile_cols, int64_t slab_bytes,
            cudaStream_t s) {
-  switch (d) {
+  switch (d) {  // one lane per row
     case 1: return launch_narrow<1>(pairs, x, y, n, s);
     case 2: return launch_narrow<2>(pairs, x, y, n, s);
     case 3: return launch_narrow<3>(pairs, x, y, n, s);

@@ -62,6 +62,15 @@ def test_no_module_imports_jax_or_reference(path):
             f"{path.name} imports {name}")
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "graph_kernel_sweep.py"])
+def test_card_scripts_import_no_jax_or_reference(script):
+    for name in _imports(_ROOT / script):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "sctools_tpu"), (
+            f"{script} imports {name}")
+
+
 def test_pipeline_without_device_raises_instead_of_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None resolves to it")
