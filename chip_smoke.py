@@ -30,7 +30,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              reorder; jaccard bitwise its plain version; X_magic within
              rtol 1e-5 of three plain matvec steps; matvec on permuted
              inputs bitwise the permuted output; X_tsne finite, its
-             15-NN label purity ≥ 0.95 × the kNN graph's.  A second,
+             15-NN label purity ≥ 0.95 × the kNN graph's.  40 more
+             t-SNE iterations under torch.profiler split its device
+             time into the repulsion kernels and the rest.  A second,
              stage-by-stage run gives each stage's wall time and peak
              device memory, and must repeat jaccard and X_magic bit for
              bit;
@@ -50,7 +52,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              k or than bins, n_bins 128 to 1024, exact ties); then the
              graph kernels at theirs (-1 ids, empty rows and
              destinations, repeated ids, a hub of 5,000 incoming edges,
-             rectangular rmatvec, k = 1 and 64, odd d, t-SNE dim 1–4),
+             rectangular rmatvec, k = 1 and 64, odd d, t-SNE dim 1–4
+             at 2 rows and at row counts one off the repulsion kernel's
+             query tile, candidate tile and split boundaries),
              and matvec and rmatvec at every width path (d = 1 to 914):
              a column slice of x gives that slice of the result bit for
              bit, and an x 4 bytes off alignment the same bits;
@@ -66,7 +70,8 @@ Phases, each printing one JSON line, each fatal on a failed check:
              each path's width on that path's edges (MAGIC 2000,
              SEACells 914, spectral 21, Palantir's fates), graph_rmatvec
              at SEACells' 914 and Palantir's 1; each holds the column-
-             slice identity there too.
+             slice identity there too.  tsne_repulsion gives the same
+             bits in two calls at the path's final layout.
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -590,9 +595,67 @@ def graph_phase(data, card: str) -> dict:
           "genes": data.n_genes, "k": int(idx0.shape[1]), "run_s": run_s,
           "stages": stages, "launches": launches,
           "x_magic_max_abs_err": magic_err,
-          "tsne_purity": pur_tsne, "graph_purity": pur_graph})
+          "tsne_purity": pur_tsne, "graph_purity": pur_graph,
+          "tsne_profile": tsne_profile(data)})
     return {"idx": idx0, "P": P, "x": x, "y": emb.contiguous(),
             "launches": launches}
+
+
+REPULSION_KERNELS = ("split_kernel", "combine_kernel", "tsne_rep_kernel")
+
+
+def tsne_profile(data, iters: int = 40) -> dict:
+    """``iters`` iterations of the t-SNE loop on the path's kNN graph
+    under ``torch.profiler``: device ms a iteration of the repulsion
+    kernels and of every other kernel (the attraction, the update),
+    host ms a iteration, and the device's idle share of that wall; and
+    the host seconds of the affinities ``embed.tsne`` computes before
+    its loop (``_prep_p``, from the graph on the card)."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sctools_tpu_torch.ops import tsne as T
+
+    n = data.n_cells
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        P, _ = T._prep_p(data.obsp["knn_indices"][:n].cpu().numpy(),
+                         data.obsp["knn_distances"][:n].cpu().numpy(), 30.0)
+    prep_s = time.perf_counter() - t0
+    init = (np.random.default_rng(0).standard_normal((n, 2)) * 1e-4).astype(
+        np.float32)
+    args = [data.obsp["knn_indices"][:n].to(DEVICE),
+            torch.from_numpy(P).to(DEVICE), torch.from_numpy(init).to(DEVICE)]
+    T.tsne_layout_arrays(*args, n_iter=2, exaggeration_iter=1)
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        T.tsne_layout_arrays(*args, n_iter=iters,
+                             exaggeration_iter=iters // 4)
+        sync()
+        wall = time.perf_counter() - t0
+    rep = other = 0.0
+    kernels = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total",
+                    getattr(ev, "cuda_time_total", 0.0)) / 1e3 / iters
+        if t <= 0:
+            continue
+        kernels[ev.key[:60]] = t
+        if any(k in ev.key for k in REPULSION_KERNELS):
+            rep += t
+        else:
+            other += t
+    wall_ms = wall * 1e3 / iters
+    return {"iterations": iters, "prep_p_host_s": prep_s,
+            "host_ms_per_iter": wall_ms,
+            "repulsion_device_ms_per_iter": rep,
+            "other_device_ms_per_iter": other,
+            "device_idle_share": 1.0 - (rep + other) / wall_ms,
+            "device_ms_per_iter_by_kernel": kernels}
 
 
 # Column slices (a, b) of the input, b = None for the last column: they
@@ -708,7 +771,9 @@ def graph_edges_phase() -> None:
                       "k": k, "d": d, "matvec_max_abs_err": mv_err,
                       "rmatvec_max_abs_err": rv_err,
                       "column_slices_bitwise": slices})
-    for n, dim in ((300, 2), (257, 1), (1000, 3), (513, 4), (1, 2)):
+    tsne_cases = [(300, 2), (257, 1), (1000, 3), (513, 4), (1, 2)]
+    tsne_cases += [(n, dim) for n in tsne_edge_sizes() for dim in (1, 2, 3, 4)]
+    for n, dim in tsne_cases:
         y = torch.from_numpy(
             (rng.standard_normal((n, dim)) * 3).astype(np.float32)).to(DEVICE)
         f, z = GK.tsne_repulsion(y, n)
@@ -720,6 +785,25 @@ def graph_edges_phase() -> None:
                       "max_abs_err": err, "term_scale": terms})
     sync()
     emit({"phase": "graph_edges", "cases": cases})
+
+
+def tsne_edge_sizes() -> list:
+    """Row counts at the edges of the repulsion kernel's grid (its sizes
+    read from the library): 2 rows; one below and one past a query
+    tile and a candidate tile; one past a split boundary, where the
+    last split holds a single candidate (spans of one and of two
+    tiles); and counts that are no multiple of the query rows a
+    thread."""
+    from sctools_tpu_torch.ops import graph_kernels as GK
+
+    lay = GK.tsne_repulsion_layout()
+    qt, tile, splits, qpt = (lay[k] for k in ("query_tile", "cand_tile",
+                                              "splits", "qpt"))
+    sizes = sorted({2, qt - 1, qt + 1, tile + 1, (splits - 1) * tile + 1,
+                    (splits - 1) * 2 * tile + 1, 3 * qt + qpt - 1})
+    check(any(n % qpt for n in sizes),
+          f"t-SNE edge sizes {sizes} miss a count off the thread's rows")
+    return sizes
 
 
 def tsne_term_scale(y, block: int = 2048) -> float:
@@ -1204,7 +1288,11 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
     terms = tsne_term_scale(y)
     err = within(f, pf, 1e-5, TSNE_FULL_ATOL * terms)
     within(z.reshape(1), pz.reshape(1), 1e-5, 0.0)
-    del f, pf
+    # split partial sums combined in a fixed order: the bits repeat
+    f2, z2 = GK.tsne_repulsion(y, n)
+    check(torch.equal(f, f2) and torch.equal(z, z2),
+          "tsne_repulsion: two calls at the full shape give other bits")
+    del f, pf, f2
     ms = cuda_ms(lambda: GK.tsne_repulsion(y, n), warmup=False)
     plain_ms = cuda_ms(lambda: GK.tsne_repulsion_plain(y, n))
     dim = y.shape[1]

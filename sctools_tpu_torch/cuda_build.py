@@ -37,7 +37,8 @@ _SIGNATURES = {
     "sct_graph_matvec": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
     "sct_graph_rmatvec": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "sct_graph_jaccard": ([_P, _I, _I, _P, _P], _I),
-    "sct_tsne_repulsion": ([_P, _I, _I, _P, _P, _P], _I),
+    "sct_tsne_repulsion": ([_P, _I, _I, _P, _P, _P, _P], _I),
+    "sct_tsne_repulsion_layout": ([_P], _I),
     "sct_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

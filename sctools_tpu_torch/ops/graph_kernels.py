@@ -32,6 +32,7 @@ matters for speed, since a reordered graph gathers from nearby rows.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -347,9 +348,11 @@ def tsne_repulsion(y: torch.Tensor, n: int
     """Exact t-SNE repulsion over the first ``n`` rows of ``y``
     (≥ n, dim ≤ 4) float32: ``(forces (n, dim), Z)`` with ``w_ij =
     1/(1 + ‖y_i − y_j‖²)`` for j ≠ i, ``forces_i = y_i·Σ_j w_ij² −
-    Σ_j w_ij²·y_j`` and ``Z = max(Σ_ij w_ij, 1e-12)``.  ``‖y_i − y_j‖²``
-    is ``max(‖y_i‖² − 2 y_i·y_j + ‖y_j‖², 0)``, as in the reference.
-    CPU tensors go to ``tsne_repulsion_plain``."""
+    Σ_j w_ij²·y_j`` and ``Z = max(Σ_ij w_ij, 1e-12)``.  The kernel sums
+    ``w_ij²·(y_i − y_j)`` over the differences themselves; the plain
+    version keeps the reference's expanded form, ``‖y_i − y_j‖² =
+    max(‖y_i‖² − 2 y_i·y_j + ‖y_j‖², 0)``.  CPU tensors go to
+    ``tsne_repulsion_plain``."""
     config.resolved_graph_impl()
     if y.ndim != 2 or not 1 <= y.shape[1] <= TSNE_D_MAX:
         raise ValueError(
@@ -359,16 +362,21 @@ def tsne_repulsion(y: torch.Tensor, n: int
         raise ValueError(f"n={n} outside 0..{y.shape[0]} rows of y")
     if not _kernel_device(y, "tsne_repulsion"):
         return tsne_repulsion_plain(y, n)
-    yf = y[:n].to(torch.float32).contiguous()
+    yf = _as(y[:n], torch.float32)
     dim = yf.shape[1]
-    forces = torch.empty((n, dim), dtype=torch.float32, device=y.device)
-    zrow = torch.empty((n,), dtype=torch.float32, device=y.device)
+    dev = y.device
+    forces = torch.empty((n, dim), dtype=torch.float32, device=dev)
+    zrow = torch.empty((n,), dtype=torch.float32, device=dev)
     if n:
         lib = cuda_build.library()
-        with torch.cuda.device(y.device):
+        # the partial sums of each candidate split, combined in the kernel
+        splits = tsne_repulsion_layout()["splits"]
+        scratch = torch.empty((splits, dim + 1, n), dtype=torch.float32,
+                              device=dev)
+        with _guard(dev):
             code = lib.sct_tsne_repulsion(
                 yf.data_ptr(), n, dim, forces.data_ptr(), zrow.data_ptr(),
-                _stream(y.device))
+                scratch.data_ptr(), _stream(dev))
             tsne_repulsion.launches += 1
         cuda_build.check(code, "tsne_repulsion launch")
     # Z summed outside the kernel, where the reference sums it: no
@@ -377,6 +385,22 @@ def tsne_repulsion(y: torch.Tensor, n: int
 
 
 tsne_repulsion.launches = 0
+
+_TSNE_LAYOUT: dict | None = None
+
+
+def tsne_repulsion_layout() -> dict:
+    """The repulsion kernel's compile-time sizes (``csrc/tsne_repulsion.cu``;
+    builds the library on first use): query rows a block
+    (``query_tile``), candidate rows a staged tile (``cand_tile``),
+    candidate splits (``splits``) and query rows a thread (``qpt``)."""
+    global _TSNE_LAYOUT
+    if _TSNE_LAYOUT is None:
+        out = (ctypes.c_int * 4)()
+        cuda_build.library().sct_tsne_repulsion_layout(ctypes.addressof(out))
+        _TSNE_LAYOUT = dict(zip(("query_tile", "cand_tile", "splits", "qpt"),
+                                out))
+    return _TSNE_LAYOUT
 
 
 def tsne_repulsion_plain(y: torch.Tensor, n: int, block: int = 2048

@@ -270,7 +270,8 @@ def _rep_ok(y, f, z, f_ref, z_ref):
     np.testing.assert_allclose(float(z), float(z_ref), rtol=1e-5)
 
 
-@pytest.mark.parametrize("n,dim", [(300, 2), (200, 3)])
+@pytest.mark.parametrize("n,dim", [(300, 2), (200, 3), (1, 2), (2, 2),
+                                   (257, 1), (513, 4)])
 def test_tsne_repulsion_matches_pallas_kernel(n, dim):
     rng = np.random.default_rng(n)
     y = (rng.standard_normal((n, dim)) * 3.0).astype(np.float32)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import sctools_tpu_torch as sctt
+from sctools_tpu_torch import cuda_build
 from sctools_tpu_torch.carry import graph_from_numpy
 from sctools_tpu_torch.ops import graph_kernels, knn_kernel
 
@@ -63,12 +64,49 @@ def test_no_module_imports_jax_or_reference(path):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "graph_kernel_sweep.py"])
+                                    "graph_kernel_sweep.py",
+                                    "tsne_kernel_sweep.py"])
 def test_card_scripts_import_no_jax_or_reference(script):
     for name in _imports(_ROOT / script):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "sctools_tpu"), (
             f"{script} imports {name}")
+
+
+def _c_entry_points() -> dict:
+    """{name: (argument kinds, return kind)} of every ``sct_*`` function
+    the CUDA sources define, kinds "ptr" and "int"."""
+    import re
+
+    found = {}
+    for src in sorted((_PKG / "csrc").glob("*.cu")):
+        for ret, name, params in re.findall(
+                r"^(int|const char\*) (sct_\w+)\(([^)]*)\)",
+                src.read_text(), re.M):
+            kinds = ["ptr" if "*" in p else "int" if p.split()[0] == "int"
+                     else p for p in params.split(",")]
+            found[name] = (kinds, "ptr" if "*" in ret else ret)
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(cuda_build._SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """ctypes passes each argument as ``_SIGNATURES`` says: a pointer
+    given as c_int would be cut to 32 bits, an int as c_void_p misread.
+    So each entry's argument and return types follow the C definition
+    in ``csrc/``."""
+    import ctypes
+
+    argtypes, restype = cuda_build._SIGNATURES[name]
+    kinds, ret = _c_entry_points()[name]
+    as_kind = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+               ctypes.c_char_p: "ptr"}
+    assert [as_kind[t] for t in argtypes] == kinds
+    assert as_kind[restype] == ret
+
+
+def test_every_c_entry_point_has_a_signature():
+    assert sorted(_c_entry_points()) == sorted(cuda_build._SIGNATURES)
 
 
 def test_pipeline_without_device_raises_instead_of_cpu():
