@@ -46,9 +46,11 @@
 //   third level, keep the f32 error near that of a blocked sum, not of
 //   one sequential sum over n terms.
 //
-// Bound on an H100, as the repository counts it: operations on the CUDA
-// cores, 4D + 10 per pair (fmas as 2); the bytes (y read once, forces
-// and zrow written once) are negligible.
+// Bound on an H100, as the repository counts it: the operations the
+// function needs on the CUDA cores, 5D + 3 per pair with an fma as 2 (D
+// subs, D fmas for den, the reciprocal, w^2, the z add, D fmas for the
+// force); the bytes (y read once, forces and zrow written once) are
+// negligible.
 //
 // THREADS, QPT, TILE and SPLITS were chosen with tsne_kernel_sweep.py
 // at 68,579 x 2 (PERF.md).
@@ -129,7 +131,7 @@ __device__ __forceinline__ void tile_sums(const float* __restrict__ cand,
 // partial sums of split s to part (splits, D + 1, n).
 template <int D, int BLOCK, int Q, int TILE_ROWS>
 __global__ void __launch_bounds__(BLOCK)
-    split_kernel(const float* __restrict__ y, int n, int span,
+    tsne_split_kernel(const float* __restrict__ y, int n, int span,
                  float* __restrict__ part) {
   constexpr int STRIDE = stride_for(D);
   constexpr int QT = BLOCK * Q;
@@ -198,7 +200,7 @@ __global__ void __launch_bounds__(BLOCK)
 // forces and zrow from the partial sums, split 0 first.
 template <int D>
 __global__ void __launch_bounds__(COMBINE_THREADS)
-    combine_kernel(const float* __restrict__ part, int n, int splits,
+    tsne_combine_kernel(const float* __restrict__ part, int n, int splits,
                    float* __restrict__ forces, float* __restrict__ zrow) {
   const int i = blockIdx.x * COMBINE_THREADS + threadIdx.x;
   if (i >= n) return;
@@ -225,11 +227,11 @@ cudaError_t launch_sized(const float* y, int n, int splits, float* part,
   const int per_split = (n + splits - 1) / splits;
   const int span = (per_split + TILE_ROWS - 1) / TILE_ROWS * TILE_ROWS;
   const dim3 grid((n + BLOCK * Q - 1) / (BLOCK * Q), splits);
-  split_kernel<D, BLOCK, Q, TILE_ROWS><<<grid, BLOCK, 0, stream>>>(
+  tsne_split_kernel<D, BLOCK, Q, TILE_ROWS><<<grid, BLOCK, 0, stream>>>(
       y, n, span, part);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_kernel<D><<<(n + COMBINE_THREADS - 1) / COMBINE_THREADS,
+  tsne_combine_kernel<D><<<(n + COMBINE_THREADS - 1) / COMBINE_THREADS,
                       COMBINE_THREADS, 0, stream>>>(part, n, splits, forces,
                                                     zrow);
   return cudaGetLastError();

@@ -78,7 +78,7 @@ def build_variants() -> dict:
              str(lib)], capture_output=True, text=True)
         if r.returncode:
             raise RuntimeError(f"nvcc {tag}:\n{r.stdout}{r.stderr}")
-        want = f"split_kernelILi2ELi{threads}ELi{qpt}ELi{tile}E"
+        want = f"tsne_split_kernelILi2ELi{threads}ELi{qpt}ELi{tile}E"
         regs = [m.group(2, 3) for m in re.finditer(
             r"entry function '(\S+)'.*?(\d+) bytes spill stores.*?"
             r"Used (\d+) registers", r.stdout + r.stderr, re.S)
@@ -108,7 +108,7 @@ def sass_loops(lib: Path) -> list:
     out = []
     for fn in re.split(r"\n\s*Function : ", text)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if not re.search(r"(split_kernel|tsne_rep_kernel)ILi2E", name):
+        if not re.search(r"(tsne_split_kernel|tsne_rep_kernel)ILi2E", name):
             continue  # the pair loops at D = 2
         instr = []  # (address, text)
         for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn):
