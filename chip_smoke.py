@@ -49,7 +49,10 @@ Phases, each printing one JSON line, each fatal on a failed check:
 7. edges   — the kNN kernels against their plain versions at small
              shapes that reach their corners (k = 1 to 256, d = 1 and
              256, euclidean, self exclusion, bf16, fewer candidates than
-             k or than bins, n_bins 128 to 1024, exact ties); then the
+             k or than bins, n_bins 128 to 1024, exact ties; for
+             knn_select also row counts one off its query tile,
+             candidate tile and split boundaries, with empty splits, at
+             k = 15 to 256 and d = 1, 3, 50, 256); then the
              graph kernels at theirs (-1 ids, empty rows and
              destinations, repeated ids, a hub of 5,000 incoming edges,
              rectangular rmatvec, k = 1 and 64, odd d, t-SNE dim 1–4
@@ -62,7 +65,10 @@ Phases, each printing one JSON line, each fatal on a failed check:
              path's shapes (kNN also at the configs[3] candidate width:
              1.3M points, 65,536 queries; f32 k=15, binned k=15 and
              bf16 k=32 then the f32 refine to 15, with recall against
-             the float64 oracle), and times: kernel, plain version, one library
+             the float64 oracle; at each of the three knn_select bit for
+             bit as the earlier 4x4 score core, run as knn_binned with
+             n_bins >= nc, and in two calls), and times: kernel, plain
+             version, the earlier core (earlier_ms), one library
              yardstick where a single PyTorch call computes the same
              function (timed here and used nowhere in the port) and the
              card's bound (the published peaks and the bound rules are
@@ -883,13 +889,61 @@ def binned_plain(q, c, k: int, n_bins: int, metric: str = "cosine",
     return want, (sv.cpu().numpy(), nb)
 
 
+def split_edge_cases(qb: int, cb: int, splits: int) -> list:
+    """``edges_phase`` cases at row counts one off the exact kernel's
+    query tile (``qb``), candidate tile (``cb``) and split boundaries
+    (``splits`` ranges of whole tiles; with two tiles some ranges are
+    empty), at k = 15, 16, 17, 32, 33 and 256, d = 1, 3, 50 and 256,
+    both metrics and both dtypes.  Their tie cases take "exact" points
+    (``tie_points``): the plain version's one-column candidate block
+    (nc = 1025 against its 1024-column blocks) is a matrix-vector
+    product whose last bits differ from the blocks' on inexact scores,
+    which would part exact ties there."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        # (nq, nc, d, k, metric, dtype, exclude_self, integer points)
+        (qb - 1, cb + 1, 50, 15, "cosine", f32, False, False),
+        (qb + 1, splits * cb - 1, 3, 16, "euclidean", f32, True, False),
+        (2 * qb + 1, splits * cb + 1, 1, 17, "cosine", bf16, False, False),
+        (qb + 1, 3 * splits * cb - 1, 256, 32, "euclidean", bf16, True,
+         False),
+        (2 * qb - 1, 2 * splits * cb + 1, 50, 33, "cosine", f32, True,
+         "exact"),
+        (qb - 1, 2 * splits * cb - 1, 50, 256, "euclidean", f32, False,
+         False),
+        (qb + 1, (splits + 1) * cb + 1, 3, 15, "euclidean", bf16, False,
+         False),
+        (2 * qb + 1, splits * cb + 1, 256, 16, "cosine", f32, True,
+         "exact"),
+    ]
+
+
+def tie_points(rng, n: int, d: int, exact: bool = False):
+    """``n`` rows drawn from 40 base points, so that equal scores tie
+    exactly: integers in [-3, 3], or with ``exact`` ±1 in four places
+    (norm 2, so every cosine and euclidean score is exact in float32,
+    whatever the order of the sums)."""
+    if exact:
+        base = np.zeros((40, d), np.float32)
+        for row in base:
+            row[rng.choice(d, 4, replace=False)] = rng.choice([-1, 1], 4)
+    else:
+        base = rng.integers(-3, 4, size=(40, d)).astype(np.float32)
+    return base[rng.integers(0, 40, size=n)]
+
+
 def edges_phase() -> None:
     import torch
 
     from sctools_tpu_torch.ops.knn import _prep
-    from sctools_tpu_torch.ops.knn_kernel import knn_select, knn_select_plain
+    from sctools_tpu_torch.ops.knn_kernel import (knn_select,
+                                                  knn_select_layout,
+                                                  knn_select_plain)
 
     rng = np.random.default_rng(1)
+    layout = knn_select_layout()
     cases = [
         # (nq, nc, d, k, metric, dtype, exclude_self, integer points)
         (1000, 3000, 50, 1, "cosine", torch.float32, False, False),
@@ -903,12 +957,12 @@ def edges_phase() -> None:
         (70, 65, 9, 5, "cosine", torch.float32, True, False),
         (2000, 2000, 8, 12, "euclidean", torch.float32, True, True),
         (2000, 2000, 8, 12, "cosine", torch.float32, False, True),
-    ]
+    ] + split_edge_cases(layout["query_tile"], layout["cand_tile"],
+                         layout["splits"])
     results = []
     for nq, nc, d, k, metric, dtype, excl, integer in cases:
         if integer:
-            base = rng.integers(-3, 4, size=(40, d)).astype(np.float32)
-            pts = base[rng.integers(0, 40, size=max(nq, nc))]
+            pts = tie_points(rng, max(nq, nc), d, integer == "exact")
         else:
             pts = rng.normal(size=(max(nq, nc), d)).astype(np.float32)
         x = torch.from_numpy(pts).cuda()
@@ -928,7 +982,7 @@ def edges_phase() -> None:
         results.append({"nq": nq, "nc": nc, "d": d, "k": k,
                         "metric": metric, "dtype": str(dtype)[6:],
                         "exclude_self": excl, **stats})
-    emit({"phase": "edges", "cases": results})
+    emit({"phase": "edges", "layout": layout, "cases": results})
 
 
 def binned_edges_phase() -> None:
@@ -1059,16 +1113,55 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
     t_ops = 2.0 * nq * nc * d / peaks[dtype] * 1e3
     t_bytes = ((nq + nc) * d * q.element_size() + nq * k * 8) \
         / peaks["bytes"] * 1e3
-    return {"name": name, "route": "cuda",
-            "source": f"sctools_tpu_torch/csrc/{name}.cu",
-            "replaces": f"sctools_tpu/ops/pallas_knn.py:{line}",
-            "shape": name_shape, "launches": launches,
-            "max_abs_err": stats["max_abs_err"],
-            "idx_agree": stats["idx_agree"], "recall_at_10": recall,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "card": card}
+    row = {"name": name, "route": "cuda",
+           "source": f"sctools_tpu_torch/csrc/{name}.cu",
+           "replaces": f"sctools_tpu/ops/pallas_knn.py:{line}",
+           "shape": name_shape, "launches": launches,
+           "max_abs_err": stats["max_abs_err"],
+           "idx_agree": stats["idx_agree"], "recall_at_10": recall,
+           "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "card": card}
+    if n_bins is None:
+        row.update(earlier_core(q, c, k, metric))
+    return row
+
+
+def earlier_core(q, c, k: int, metric: str) -> dict:
+    """The exact kernel against the earlier 4x4 score core, which
+    ``knn_binned`` still runs: with ``n_bins`` ≥ nc every candidate owns
+    its bin, so that kernel computes the exact top k.  Both calls of the
+    exact kernel and the earlier core must give equal bits; the earlier
+    core's time is ``earlier_ms``.  Adds the exact kernel's splits and
+    its build's registers and local memory a thread."""
+    import torch
+
+    from sctools_tpu_torch.config import round_up
+    from sctools_tpu_torch.ops import knn_kernel as KK
+
+    n_bins = round_up(c.shape[0], KK.BINS_MULTIPLE)
+    first = KK.knn_select(q, c, k=k, metric=metric)
+    again = KK.knn_select(q, c, k=k, metric=metric)
+    old = KK.knn_binned(q, c, k=k, n_bins=n_bins, metric=metric)
+    sync()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "knn_select: two calls give different bits")
+    check(all(torch.equal(a, b) for a, b in zip(first, old)),
+          "knn_select differs from the earlier score core "
+          f"(knn_binned, n_bins {n_bins} >= nc)")
+    del first, again, old
+    earlier_ms = cuda_ms(lambda: KK.knn_binned(q, c, k=k, n_bins=n_bins,
+                                               metric=metric))
+    layout = KK.knn_select_layout()
+    kb = 16 if k <= 16 else 32
+    return {"earlier_ms": earlier_ms,
+            "earlier": f"knn_binned, n_bins {n_bins} (the 4x4 score "
+                       "core, bitwise equal)",
+            "split_count": layout["splits"],
+            "registers": layout.get(f"registers_k{kb}"),
+            "local_bytes": layout.get(f"local_bytes_k{kb}"),
+            "tile": [layout["query_tile"], layout["cand_tile"]]}
 
 
 BOUND_RULES = {

@@ -1,8 +1,8 @@
-// The score tile and the per-thread top-k lists shared by the two kNN
-// kernels, csrc/knn_select.cu (exact merge) and csrc/knn_binned.cu
-// (binned merge): the counterpart of _score_tile and _select_topk in
-// sctools_tpu/ops/pallas_knn.py, which both Pallas kernels share so that
-// their masks and tie rules cannot diverge.
+// The score tile and the per-thread top-k lists of the binned kNN kernel,
+// csrc/knn_binned.cu: the counterpart of _score_tile and _select_topk in
+// sctools_tpu/ops/pallas_knn.py.  csrc/knn_select.cu (exact merge)
+// scores in the same arithmetic with its own pre-packed, register-blocked
+// core and warp-wide lists.
 //
 // Layout.  One block of THREADS threads owns a tile of QB queries and
 // walks candidate tiles of CB rows.  Both tiles are staged transposed in

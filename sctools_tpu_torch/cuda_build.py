@@ -30,8 +30,9 @@ _I = ctypes.c_int
 # C entry points and their argument types: pointers and the stream as
 # c_void_p, ints as c_int.
 _SIGNATURES = {
-    "sct_knn_select": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "sct_knn_select": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
                        _I),
+    "sct_knn_select_layout": ([_P], _I),
     "sct_knn_binned": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                         _P], _I),
     "sct_graph_matvec": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),

@@ -18,6 +18,8 @@ There is no fallback from the kernel to the plain version.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import cuda_build
@@ -58,33 +60,100 @@ def knn_select(q: torch.Tensor, c: torch.Tensor, *, k: int,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-``k`` scores of each row of ``q`` (nq, d) against ``c``
     (nc, d): ``(values (nq, k) float32, ids (nq, k) int32)``.  CPU
-    tensors go to ``knn_select_plain``; CUDA tensors to the kernel."""
+    tensors go to ``knn_select_plain``; CUDA tensors to the kernel, which
+    takes both operands packed by ``pack_tiles`` and merges its candidate
+    splits in a second launch, after a norms launch for euclidean (one
+    count in ``knn_select.launches`` a call)."""
     _check(q, c, k, metric)
     if q.device.type == "cpu":
         return knn_select_plain(q, c, k=k, metric=metric,
                                 exclude_self=exclude_self)
     if q.device.type != "cuda":
         raise ValueError(f"knn_select runs on cpu or cuda, not {q.device}")
-    q = q.contiguous()
-    c = c.contiguous()
     nq, d = q.shape
     out_v = torch.empty((nq, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     if nq == 0:
         return out_v, out_i
     lib = cuda_build.library()
+    layout = knn_select_layout()
+    qb, cb, splits = (layout["query_tile"], layout["cand_tile"],
+                      layout["splits"])
+    qp = pack_tiles(q, qb)
+    cp = qp if c is q and qb == cb else pack_tiles(c, cb)
+    euclid = metric == "euclidean"
+    lists = 2 * splits * nq * k if splits > 1 else 0
+    norms = round_up(nq, qb) + round_up(c.shape[0], cb) if euclid else 0
+    scratch = torch.empty((lists + norms,), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.sct_knn_select(
-            q.data_ptr(), c.data_ptr(), nq, c.shape[0], d, k,
-            int(q.dtype == torch.bfloat16), int(metric == "euclidean"),
-            int(exclude_self), out_v.data_ptr(), out_i.data_ptr(), stream)
+            qp.data_ptr(), cp.data_ptr(), nq, c.shape[0], d, k, int(euclid),
+            int(exclude_self), out_v.data_ptr(), out_i.data_ptr(),
+            scratch.data_ptr(), stream)
         knn_select.launches += 1
     cuda_build.check(code, "knn_select launch")
     return out_v, out_i
 
 
 knn_select.launches = 0  # kernel launches, for checks that a run used it
+
+_LAYOUT: dict | None = None
+
+
+def knn_select_layout() -> dict:
+    """The exact kernel's compile-time sizes (``csrc/knn_select.cu``;
+    builds the library on first use): queries a block (``query_tile``),
+    candidates a tile (``cand_tile``), candidate splits (``splits``),
+    candidate stages in flight at most (``ring``), score rows and columns
+    a lane, and the registers and local-memory bytes a thread of the
+    K = 16 and K = 32 builds."""
+    global _LAYOUT
+    if _LAYOUT is None:
+        out = (ctypes.c_int * 10)()
+        code = cuda_build.library().sct_knn_select_layout(
+            ctypes.addressof(out))
+        cuda_build.check(code, "knn_select layout")
+        _LAYOUT = dict(zip(
+            ("query_tile", "cand_tile", "splits", "ring", "rows_a_lane",
+             "cols_a_lane", "registers_k16", "local_bytes_k16",
+             "registers_k32", "local_bytes_k32"), out))
+    return _LAYOUT
+
+
+def pack_tiles(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` (n, d) as the kernel reads it: float32 tiles of ``width``
+    rows, tile-major and feature-major inside, (ceil(n / width), d,
+    width), zero past row n (bf16 widens exactly)."""
+    n, d = x.shape
+    tiles = -(-n // width)
+    out = torch.empty((tiles, d, width), dtype=torch.float32,
+                      device=x.device)
+    rows = out.permute(0, 2, 1)  # (tiles, width, d) view of the same memory
+    whole = n // width
+    rows[:whole].copy_(x[:whole * width].reshape(whole, width, d))
+    if whole < tiles:
+        rows[whole, :n - whole * width].copy_(x[whole * width:])
+        rows[whole, n - whole * width:].zero_()
+    return out
+
+
+def knn_merge_plain(vals: torch.Tensor, ids: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the kernel's merge launch: the top ``k`` of
+    each query over ``S`` lists ``vals``/``ids`` (S, nq, k), each sorted
+    by (value descending, id ascending) over ascending id ranges, by
+    (value descending, lower list first); ``(values (nq, k) float32,
+    ids (nq, k) int32)``, id -1 where no finite value is left."""
+    s, nq, k = vals.shape
+    allv = vals.permute(1, 0, 2).reshape(nq, s * k)
+    alli = ids.permute(1, 0, 2).reshape(nq, s * k)
+    v, sel = torch.sort(allv, dim=1, descending=True, stable=True)
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=vals.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=vals.device)
+    _write_top(v[:, :k], torch.gather(alli, 1, sel[:, :k]), out_v, out_i)
+    return out_v, out_i
 
 
 def knn_select_plain(q: torch.Tensor, c: torch.Tensor, *, k: int,

@@ -317,3 +317,97 @@ def test_binned_through_knn_arrays_with_refine(metric):
                            np.asarray(r_dist)[:2000], metric, 1e-5)
     o_idx, _ = port_knn.knn_numpy(pts, pts, k=10, metric=metric)
     assert port_knn.recall_at_k(p_idx[:2000], o_idx) > 0.98
+
+
+# ------------------------------------------------- candidate splits
+
+
+def _split_select(q, c, k, metric, exclude_self, bounds):
+    """``knn_select_plain`` on each candidate range [bounds[s],
+    bounds[s + 1]) with the ids offset to global ones: the (S, nq, k)
+    lists the kernel's split blocks write.  Under ``exclude_self`` (q is
+    c) the queries inside a range drop their own pair there."""
+    vals, ids = [], []
+    nq = q.shape[0]
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        v = torch.empty((nq, k))
+        i = torch.empty((nq, k), dtype=torch.int32)
+        rows = torch.zeros(nq, dtype=torch.bool)
+        if exclude_self:
+            rows[a:b] = True
+            v[a:b], i[a:b] = knn_kernel.knn_select_plain(
+                q[a:b], c[a:b], k=k, metric=metric, exclude_self=True)
+        if (~rows).any():
+            v[~rows], i[~rows] = knn_kernel.knn_select_plain(
+                q[~rows], c[a:b], k=k, metric=metric)
+        vals.append(v)
+        ids.append(torch.where(i >= 0, i + a, -1))
+    return torch.stack(vals), torch.stack(ids)
+
+
+@pytest.mark.parametrize("bounds", [(0, 200), (0, 93, 200),
+                                    (0, 5, 70, 71, 140, 200)],
+                         ids=["S1", "S2", "S5"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_split_merge_matches_unsplit_and_pallas_kernel(metric, exclude_self,
+                                                       bounds):
+    """The kernel's candidate splits and merge launch, in their plain
+    versions: points with exact ties, ranges of unequal length (one of 5
+    and one of 1 candidate, fewer than k).  The merged lists equal the
+    unsplit plain version and the reference's Pallas kernel (interpret
+    mode): ids identical, scores within 1e-5.  Each point has ±1 in four
+    of its eight places (norm 2), so every score is exact in float32 for
+    both metrics, whatever the product's blocking (a one-column range
+    takes another matmul path, whose last bits differ on inexact
+    scores)."""
+    rng = np.random.default_rng(11)
+    base = np.zeros((40, 8), np.float32)
+    for row in base:
+        row[rng.choice(8, 4, replace=False)] = rng.choice([-1, 1], 4)
+    pts = base[rng.integers(0, 40, size=200)]
+    q = port_knn._prep(torch.from_numpy(pts), metric, torch.float32)
+    k = 12
+    sv, si = _split_select(q, q, k, metric, exclude_self, bounds)
+    v, i = knn_kernel.knn_merge_plain(sv, si)
+    uv, ui = knn_kernel.knn_select_plain(q, q, k=k, metric=metric,
+                                         exclude_self=exclude_self)
+    assert torch.equal(i, ui)
+    torch.testing.assert_close(v, uv, atol=1e-5, rtol=0)
+    r_idx, r_dist = _ref(pts, pts, "float32", k=k, metric=metric,
+                         exclude_self=exclude_self)
+    np.testing.assert_array_equal(i.numpy(), r_idx[:200])
+    dist = (1.0 - v) if metric == "cosine" else torch.sqrt(
+        torch.clamp(-v, min=0.0))
+    assert_same_neighbours(i.numpy(), dist.numpy(), r_idx[:200],
+                           r_dist[:200], metric, 1e-5)
+
+
+def test_merge_of_empty_and_short_lists():
+    """Lists padded with -inf / -1 (a range shorter than k, or empty)
+    merge to the finite entries first and id -1 after them; equal
+    values go to the lower list."""
+    inf = float("-inf")
+    vals = torch.tensor([[[0.5, 0.25, inf]], [[inf, inf, inf]],
+                         [[0.5, inf, inf]]])
+    ids = torch.tensor([[[3, 1, -1]], [[-1, -1, -1]], [[9, -1, -1]]],
+                       dtype=torch.int32)
+    v, i = knn_kernel.knn_merge_plain(vals, ids)
+    assert v.tolist() == [[0.5, 0.5, 0.25]]
+    assert i.tolist() == [[3, 9, 1]]
+    v, i = knn_kernel.knn_merge_plain(vals[1:2], ids[1:2])
+    assert i.tolist() == [[-1, -1, -1]] and torch.isinf(v).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_tiles_is_tile_major_feature_major_zero_padded(dtype):
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(130, 7)).astype(np.float32)).to(dtype)
+    p = knn_kernel.pack_tiles(x, 64)
+    assert p.shape == (3, 7, 64) and p.dtype == torch.float32
+    rows = torch.cat([p[t].T for t in range(3)])  # back to (192, 7)
+    assert torch.equal(rows[:130], x.float())
+    assert (rows[130:] == 0).all()
+    assert torch.equal(knn_kernel.pack_tiles(x[:128], 64),
+                       x[:128].float().reshape(2, 64, 7).permute(0, 2, 1))
+    assert knn_kernel.pack_tiles(x[:0], 64).shape == (0, 7, 64)
