@@ -1160,8 +1160,7 @@ def earlier_core(q, c, k: int, metric: str) -> dict:
                        "core, bitwise equal)",
             "split_count": layout["splits"],
             "registers": layout.get(f"registers_k{kb}"),
-            "local_bytes": layout.get(f"local_bytes_k{kb}"),
-            "tile": [layout["query_tile"], layout["cand_tile"]]}
+            "local_bytes": layout.get(f"local_bytes_k{kb}")}
 
 
 BOUND_RULES = {
