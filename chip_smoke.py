@@ -52,10 +52,14 @@ Phases, each printing one JSON line, each fatal on a failed check:
              k or than bins, n_bins 128 to 1024, exact ties; for
              knn_select also row counts one off its query tile,
              candidate tile and split boundaries, with empty splits, at
-             k = 15 to 256 and d = 1, 3, 50, 256); then the
+             k = 15 to 256 and d = 1, 3, 50, 256; for knn_binned
+             candidate counts one off its 128-column tile, its chunk
+             ranges and its split boundaries, and one chunk in one
+             split); then the
              graph kernels at theirs (-1 ids, empty rows and
              destinations, repeated ids, a hub of 5,000 incoming edges,
-             rectangular rmatvec, k = 1 and 64, odd d, t-SNE dim 1–4
+             rectangular rmatvec, k = 1 and 64, odd d; Jaccard at
+             k = 1 to 256, across k = 16 / 17, with odd n; t-SNE dim 1–4
              at 2 rows and at row counts one off the repulsion kernel's
              query tile, candidate tile and split boundaries),
              and matvec and rmatvec at every width path (d = 1 to 914):
@@ -66,9 +70,10 @@ Phases, each printing one JSON line, each fatal on a failed check:
              1.3M points, 65,536 queries; f32 k=15, binned k=15 and
              bf16 k=32 then the f32 refine to 15, with recall against
              the float64 oracle; at each of the three knn_select bit for
-             bit as the earlier 4x4 score core, run as knn_binned with
-             n_bins >= nc, and in two calls), and times: kernel, plain
-             version, the earlier core (earlier_ms), one library
+             bit as knn_binned with n_bins >= nc, where every candidate
+             owns its bin, and in two calls), and times: kernel, plain
+             version, knn_binned with every candidate its own bin
+             (binned_all_bins_ms), one library
              yardstick where a single PyTorch call computes the same
              function (timed here and used nowhere in the port) and the
              card's bound (the published peaks and the bound rules are
@@ -76,8 +81,10 @@ Phases, each printing one JSON line, each fatal on a failed check:
              each path's width on that path's edges (MAGIC 2000,
              SEACells 914, spectral 21, Palantir's fates), graph_rmatvec
              at SEACells' 914 and Palantir's 1; each holds the column-
-             slice identity there too.  tsne_repulsion gives the same
-             bits in two calls at the path's final layout.
+             slice identity there too.  graph_jaccard adds its
+             torch.profiler device µs and a bound at the INT32 rate;
+             tsne_repulsion gives the same bits in two calls at the
+             path's final layout.
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -111,9 +118,13 @@ TSNE_FULL_ATOL = 2e-4
 # Published peaks (NVIDIA data sheets, dense): f32 on the CUDA cores,
 # bf16 on the tensor cores, HBM bandwidth.
 PEAKS = {
-    "H100 SXM": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
-    "H100 PCIe": {"float32": 51e12, "bfloat16": 756e12, "bytes": 2.0e12},
+    "H100 SXM": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12,
+                 "int32": 132 * 64 * 1.98e9},
+    "H100 PCIe": {"float32": 51e12, "bfloat16": 756e12, "bytes": 2.0e12,
+                  "int32": 114 * 64 * 1.755e9},
 }
+# int32: 64 INT32 lanes an SM a clock (the Hopper architecture white
+# paper; half the FP32 lanes) at the boost clock the f32 peak assumes.
 
 
 class SmokeFailure(RuntimeError):
@@ -728,6 +739,19 @@ def graph_edges_phase() -> None:
               f"jaccard n={n} k={k} differs from its plain version")
         cases.append({"kernel": "graph_matvec+graph_jaccard", "n": n,
                       "k": k, "d": d, "matvec_max_abs_err": mv_err})
+    # Jaccard at the kernel's layout changes: a half-warp a row at k <= 16
+    # (odd n: the last warp holds one row), a warp a row above, up to
+    # K_MAX
+    for n, k in ((1001, 16), (999, 17), (301, 256), (7, 16), (513, 32)):
+        idx = rng.integers(0, n, (n, k)).astype(np.int32)
+        idx[rng.random((n, k)) < 0.1] = -1
+        idx[::13] = -1
+        idx[::7, 0] = idx[::7, -1]
+        ti = torch.from_numpy(idx).to(DEVICE)
+        check(torch.equal(GK.jaccard(ti), GK.jaccard_plain(ti)),
+              f"jaccard n={n} k={k} differs from its plain version")
+        cases.append({"kernel": "graph_jaccard", "n": n, "k": k,
+                      "bitwise": True})
     # rmatvec: -1 ids, destinations without edges (ids confined to the
     # first rows), a hub with >= 5,000 incoming edges, d = 1, 3, 33 and
     # 914, and rectangular n (more and fewer outputs than rows; ids >= n
@@ -985,19 +1009,55 @@ def edges_phase() -> None:
     emit({"phase": "edges", "layout": layout, "cases": results})
 
 
+def binned_split_cases(qb: int, cb: int, splits: int) -> list:
+    """``binned_edges_phase`` cases at the corners of the binned kernel's
+    sweep (``qb`` queries a block, ``cb``-column tiles = bin chunks, at
+    most ``splits`` splits over chunk ranges): one chunk in one split
+    (n_bins = cb) with nc one below the tile and one column into a sixth
+    round; one chunk fewer, as many and one more than splits, with nc
+    one off a round's end (the chunks before it take one round more than
+    those after); that boundary one chunk past a split boundary; fewer
+    candidates than bins over several chunks; query counts one off the
+    query tile.  The tie cases take "exact" points (``tie_points``)."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    few = max(1, splits - 1) * cb
+    return [
+        # (nq, nc, d, k, n_bins, metric, dtype, exclude_self, integer)
+        (qb - 1, cb - 1, 50, 15, cb, "cosine", f32, False, False),
+        (qb + 1, 5 * cb + 1, 50, 16, cb, "euclidean", f32, True, "exact"),
+        (2 * qb + 1, 2 * few + 1, 3, 17, few, "cosine", bf16, False,
+         False),
+        (qb - 1, 2 * splits * cb - 1, 50, 15, splits * cb, "euclidean",
+         f32, False, "exact"),
+        (qb + 1, 2 * (splits + 1) * cb + cb - 1, 50, 33,
+         (splits + 1) * cb, "cosine", f32, True, False),
+        (2 * qb - 1, 2 * (splits + 1) * cb + cb + 1, 256, 15,
+         (splits + 1) * cb, "cosine", f32, False, "exact"),
+        (qb + 1, 2 * splits * cb + (splits + 1) * cb + 1, 8, 32,
+         2 * splits * cb, "euclidean", bf16, True, False),
+        (2 * qb + 1, splits * cb + 1, 50, 15, 4 * splits * cb, "cosine",
+         f32, True, "exact"),
+    ]
+
+
 def binned_edges_phase() -> None:
     """The binned kNN kernel against its plain version at the corners of
     its merge: fewer candidates than bins (then bitwise the exact
     kernel), candidate counts that are no multiple of n_bins, k = 1 and
     256, n_bins 128 and 1024 (and one rounded up from 300), bf16,
     euclidean, self exclusion, and integer points with exact ties inside
-    and across bins (then ids identical)."""
+    and across bins (then ids identical); then ``binned_split_cases``."""
     import torch
 
     from sctools_tpu_torch.ops.knn import _prep
-    from sctools_tpu_torch.ops.knn_kernel import knn_binned, knn_select
+    from sctools_tpu_torch.ops.knn_kernel import (knn_binned,
+                                                  knn_binned_layout,
+                                                  knn_select)
 
     rng = np.random.default_rng(3)
+    layout = knn_binned_layout()
     cases = [
         # (nq, nc, d, k, n_bins, metric, dtype, exclude_self, integer)
         (1000, 1000, 50, 15, 1024, "cosine", torch.float32, False, False),
@@ -1010,12 +1070,12 @@ def binned_edges_phase() -> None:
         (1000, 2000, 50, 15, 128, "cosine", torch.bfloat16, True, False),
         (2000, 2000, 8, 12, 128, "euclidean", torch.float32, True, True),
         (2000, 2000, 8, 12, 256, "cosine", torch.float32, False, True),
-    ]
+    ] + binned_split_cases(layout["query_tile"], layout["cand_tile"],
+                           layout["splits"])
     results = []
     for nq, nc, d, k, n_bins, metric, dtype, excl, integer in cases:
         if integer:
-            base = rng.integers(-3, 4, size=(40, d)).astype(np.float32)
-            pts = base[rng.integers(0, 40, size=max(nq, nc))]
+            pts = tie_points(rng, max(nq, nc), d, integer == "exact")
         else:
             pts = rng.normal(size=(max(nq, nc), d)).astype(np.float32)
         x = torch.from_numpy(pts).cuda()
@@ -1041,7 +1101,7 @@ def binned_edges_phase() -> None:
                         "n_bins": surv[1], "metric": metric,
                         "dtype": str(dtype)[6:], "exclude_self": excl,
                         **stats})
-    emit({"phase": "binned_edges", "cases": results})
+    emit({"phase": "binned_edges", "layout": layout, "cases": results})
 
 
 def library_topk(q, c, k: int):
@@ -1123,18 +1183,27 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "card": card}
+    kb = 16 if k <= 16 else 32
     if n_bins is None:
-        row.update(earlier_core(q, c, k, metric))
+        row.update(binned_all_bins(q, c, k, metric))
+        layout = KK.knn_select_layout()
+        splits = layout["splits"]
+    else:
+        layout = KK.knn_binned_layout()
+        chunks = -(-min(nc, KK.binned_bins(k, n_bins)) // layout["cand_tile"])
+        splits = max(1, min(layout["splits"], chunks))
+    row.update({"split_count": splits,
+                "registers": layout[f"registers_k{kb}"],
+                "local_bytes": layout[f"local_bytes_k{kb}"]})
     return row
 
 
-def earlier_core(q, c, k: int, metric: str) -> dict:
-    """The exact kernel against the earlier 4x4 score core, which
-    ``knn_binned`` still runs: with ``n_bins`` ≥ nc every candidate owns
-    its bin, so that kernel computes the exact top k.  Both calls of the
-    exact kernel and the earlier core must give equal bits; the earlier
-    core's time is ``earlier_ms``.  Adds the exact kernel's splits and
-    its build's registers and local memory a thread."""
+def binned_all_bins(q, c, k: int, metric: str) -> dict:
+    """The exact kernel against ``knn_binned`` with ``n_bins`` ≥ nc,
+    where every candidate owns its bin, so that the binned kernel (its
+    own launch, on the shared core) computes the exact top k.  Both
+    calls of the exact kernel and the binned one must give equal bits;
+    the binned kernel's time there is ``binned_all_bins_ms``."""
     import torch
 
     from sctools_tpu_torch.config import round_up
@@ -1143,24 +1212,22 @@ def earlier_core(q, c, k: int, metric: str) -> dict:
     n_bins = round_up(c.shape[0], KK.BINS_MULTIPLE)
     first = KK.knn_select(q, c, k=k, metric=metric)
     again = KK.knn_select(q, c, k=k, metric=metric)
-    old = KK.knn_binned(q, c, k=k, n_bins=n_bins, metric=metric)
+    launches = KK.knn_binned.launches
+    binned = KK.knn_binned(q, c, k=k, n_bins=n_bins, metric=metric)
     sync()
+    check(KK.knn_binned.launches == launches + 1,
+          "knn_binned at n_bins >= nc did not launch its kernel")
     check(all(torch.equal(a, b) for a, b in zip(first, again)),
           "knn_select: two calls give different bits")
-    check(all(torch.equal(a, b) for a, b in zip(first, old)),
-          "knn_select differs from the earlier score core "
-          f"(knn_binned, n_bins {n_bins} >= nc)")
-    del first, again, old
-    earlier_ms = cuda_ms(lambda: KK.knn_binned(q, c, k=k, n_bins=n_bins,
-                                               metric=metric))
-    layout = KK.knn_select_layout()
-    kb = 16 if k <= 16 else 32
-    return {"earlier_ms": earlier_ms,
-            "earlier": f"knn_binned, n_bins {n_bins} (the 4x4 score "
-                       "core, bitwise equal)",
-            "split_count": layout["splits"],
-            "registers": layout.get(f"registers_k{kb}"),
-            "local_bytes": layout.get(f"local_bytes_k{kb}")}
+    check(all(torch.equal(a, b) for a, b in zip(first, binned)),
+          f"knn_select differs from knn_binned at n_bins {n_bins} >= nc")
+    del first, again, binned
+    ms = cuda_ms(lambda: KK.knn_binned(q, c, k=k, n_bins=n_bins,
+                                       metric=metric))
+    return {"binned_all_bins_ms": ms,
+            "binned_all_bins": f"knn_binned, n_bins {n_bins} >= nc "
+                               "(every candidate its own bin, bitwise "
+                               "equal)"}
 
 
 BOUND_RULES = {
@@ -1180,7 +1247,8 @@ BOUND_RULES = {
                      "peak['bytes']); one compare and one add per pair of "
                      "list entries of each valid edge e (the data sheet "
                      "lists no int32 rate; the f32 CUDA-core rate stands "
-                     "in)",
+                     "in); bound_ms_int32 reads the same operations at "
+                     "peak['int32'], 64 INT32 lanes an SM a clock",
     "tsne_repulsion": "max((5*dim + 3)*n*(n - 1) / peak['float32'], "
                       "(2*n*dim + n)*4 / peak['bytes']); per pair: dim "
                       "subs, dim fmas (1 + d2), the reciprocal (w), w*w, "
@@ -1197,6 +1265,14 @@ def bounds_phase() -> dict:
           "rules": {name: "bound_ms = " + rule
                     for name, rule in BOUND_RULES.items()}})
     return peaks
+
+
+def device_us(fn, calls: int = 20) -> dict:
+    """Device µs a call of each kernel ``fn`` launches, by torch.profiler
+    over ``calls`` calls: {kernel name: µs}."""
+    import graph_kernel_sweep
+
+    return graph_kernel_sweep.device_us({"fn": fn}, calls)["fn"]
 
 
 def bound(ops: float, nbytes: float, peaks: dict, dtype="float32"):
@@ -1370,17 +1446,21 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
     ms = cuda_ms(lambda: GK.jaccard(r_idx), warmup=False)
     ms_nat = cuda_ms(lambda: GK.jaccard(idx))
     plain_ms = cuda_ms(lambda: GK.jaccard_plain(r_idx))
+    device = device_us(lambda: GK.jaccard(r_idx))
     bms, by = bound(2.0 * edges * k * k, 2.0 * n * k * 4, peaks)
+    int_ms, int_by = bound(2.0 * edges * k * k, 2.0 * n * k * 4, peaks,
+                           "int32")
     rows.append({
         "name": "graph_jaccard",
         "source": "sctools_tpu_torch/csrc/graph_jaccard.cu",
         "replaces": "sctools_tpu/ops/pallas_graph.py:432",
         "shape": f"{n}x{k} int32", "launches": launches["jaccard"],
         "max_abs_err": 0.0, "ms": ms, "ms_natural": ms_nat,
-        "plain_ms": plain_ms, "library_ms": None,
+        "device_us": device, "plain_ms": plain_ms, "library_ms": None,
         "library": "none: no single PyTorch call intersects neighbour "
                    "lists per edge",
-        "bound_ms": bms, "bound_by": by, **common})
+        "bound_ms": bms, "bound_by": by, "bound_ms_int32": int_ms,
+        "bound_by_int32": int_by, **common})
 
     f, z = GK.tsne_repulsion(y, n)
     pf, pz = GK.tsne_repulsion_plain(y, n)

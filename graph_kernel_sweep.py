@@ -2,6 +2,7 @@
 """Tile and slab sweep of the graph gather kernels on one NVIDIA card.
 
     python3 graph_kernel_sweep.py        # from the repository root
+    python3 graph_kernel_sweep.py --ab PARENT_ROOT
 
 ``graph_matvec`` and ``graph_rmatvec`` (``sctools_tpu_torch/csrc``) take
 two compile-time sizes from ``graph_gather.cuh``: the column tile a lane
@@ -14,8 +15,17 @@ synthetic clusters, whose labels are random), x of 914 columns
 (SEACells) and 2000 (MAGIC), and d = 1 and 10.  Each time is the median
 of 10 CUDA-event timings; every configuration must give the shipped
 kernel's bits, and ``torch.sparse.mm`` on the CSR matrix (true
-float32) is timed beside it.  Prints one JSON line per shape and the
-card's name and power limit first.
+float32) is timed beside it.  ``graph_jaccard`` is timed on the same
+graph: CUDA-event ms, host µs to enqueue a launch and until the card has
+run it, and ``torch.profiler`` device µs of its kernel.  Prints one JSON
+line per shape and the card's name and power limit first.
+
+``--ab PARENT_ROOT`` times ``graph_jaccard`` against the one of a
+checkout of another commit (``git archive`` of it, unpacked at
+PARENT_ROOT) in one process: on the random graph and on one whose rows
+repeat no id, as kNN lists do, in turns parent, this tree, this tree,
+parent (CUDA-event ms of one call, 10 each), with each kernel's
+profiler device µs; the two must give equal bits.
 """
 
 from __future__ import annotations
@@ -82,7 +92,9 @@ def build_probe() -> ctypes.CDLL:
     return lib
 
 
-def cuda_ms(fn) -> float:
+def event_ms(fn) -> list:
+    """REPS CUDA-event timings (ms, sorted) of one call of ``fn`` each,
+    after one untimed call."""
     import torch
 
     fn()
@@ -95,7 +107,11 @@ def cuda_ms(fn) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return sorted(times)
+
+
+def cuda_ms(fn) -> float:
+    return statistics.median(event_ms(fn))
 
 
 def guard(dev) -> None:
@@ -145,12 +161,62 @@ def device_us(fns: dict, calls: int = 20) -> dict:
     return out
 
 
+def graphs(dev) -> dict:
+    """The random 68,579 × 15 graph of the sweep (seed 0; every 13th row
+    pads slot 3) and one whose rows repeat no id: row r lists (7 r + p)
+    mod N for 15 distinct offsets p, drawn per r mod 64."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = torch.randint(0, N, (N, K), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rand[::13, 3] = -1
+    offs = torch.stack([torch.randperm(N, generator=torch.Generator()
+                                       .manual_seed(i))[:K]
+                        for i in range(64)]).to(dev)
+    rows = torch.arange(N, device=dev)
+    distinct = ((rows[:, None] * 7 + offs[rows % 64]) % N).to(torch.int32)
+    return {"random": rand, "distinct": distinct.contiguous()}
+
+
+def ab(parent_root: str) -> int:
+    import importlib
+
+    import torch
+
+    import knn_kernel_sweep as kks
+    from sctools_tpu_torch.ops import graph_kernels as GK
+
+    print(kks.smi_line(), flush=True)
+    kks.load_knn_kernel(Path(parent_root).resolve(), "sct_parent")
+    parent = importlib.import_module("sct_parent.ops.graph_kernels")
+    for name, idx in graphs(torch.device("cuda")).items():
+        a, b = parent.jaccard(idx), GK.jaccard(idx)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(b, GK.jaccard_plain(idx))):
+            raise SystemExit(f"jaccard ({name}): bits differ")
+        runs = {"parent": parent.jaccard, "this": GK.jaccard}
+        turns = [[who, event_ms(lambda f=runs[who]: f(idx))]
+                 for who in ("parent", "this", "this", "parent")]
+        print(json.dumps({
+            "kernel": "graph_jaccard", "graph": name, "n": N, "k": K,
+            "bitwise_equal": True, "event_ms_in_turns": turns,
+            "device_us": device_us({w: (lambda f=f: f(idx))
+                                    for w, f in runs.items()}),
+            "host_us_enqueue_then_done": {
+                w: host_us(lambda f=f: f(idx)) for w, f in runs.items()}}),
+            flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("graph_kernel_sweep: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--ab"]:
+        return ab(sys.argv[2])
     from sctools_tpu_torch.config import true_f32
     from sctools_tpu_torch.ops import graph_kernels as GK
 
@@ -221,6 +287,13 @@ def main() -> int:
                 res["device_us"] = device_us(
                     {"shipped": lambda: shipped(x), "library": lib_call})
             print(json.dumps(res), flush=True)
+    jaccard = lambda: GK.jaccard(idx)  # noqa: E731
+    print(json.dumps({
+        "kernel": "graph_jaccard", "n": N, "k": K,
+        "event_ms": cuda_ms(jaccard),
+        "host_us_enqueue_then_done": host_us(jaccard),
+        "device_us": device_us({"shipped": jaccard})["shipped"]}),
+        flush=True)
     pieces = {
         "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
         "device_guard": lambda: guard(dev),

@@ -17,19 +17,33 @@
 // Design.  The TPU kernel gathers neighbour lists by one-hot matmuls
 // over a band of windows, which limits it to ids below 2^24 (exact in
 // float32).  Here ids are compared as int32, so no such limit applies.
-// One warp owns one row: its lanes stage the row's own list in shared
-// memory and count vi with a shuffle reduction; then lane l takes slots
-// l, l + 32, ...: it reads j's list from device memory and compares
-// each entry with every entry of the own list (k^2 compares, own-list
-// reads broadcast from shared memory).  Counts are exact integers and
-// the division is IEEE (the build never uses --use_fast_math), so the
-// results equal the reference's bit for bit.
+// The work is k^2 compares an edge, each against a neighbour list
+// gathered from device memory (L2), so what matters is keeping lanes
+// busy and the gathers' latency off the compare chains:
+//   * k <= 16 (the path's k = 15): two rows a warp, a half-warp a row
+//     and a lane a slot.  Lane l reads slot l's id (coalesced), gets the
+//     row's list into registers by shuffles within the half-warp and
+//     counts vi from them; then it loads all of j's entries before its
+//     first compare (unrolled), and compares each with every own entry
+//     into four independent counters.
+//   * k > 16: a warp a row, the row's list in shared memory (read as
+//     broadcast int4), a lane a slot (l, l + 32, ...); the lane loads
+//     j's entries 16 at a time, all issued before their compares, into
+//     four independent counters.
+// In both, padding and entries past k are masked to values that never
+// match (-2 in j's list, -3 in the row's own).
+// Counts are exact integers and the division is IEEE (the build never
+// uses --use_fast_math), so the results equal the reference's bit for
+// bit.
 //
 // Bound on an H100: bytes against operations.  idx read once and out
-// written once is n*k*8 bytes; the compares are n*k*k^2 integer
-// operations, far below the peak; the gathered neighbour lists are
-// re-read from L2 (n*k*k*4 bytes).  The kernel is bound by the gather
-// latency of those reads.
+// written once is n*k*8 bytes; the compares are e*k^2 integer compares
+// and adds (e valid edges), which at Hopper's INT32 rate (64 lanes an SM
+// a clock, half the FP32 rate) outweigh the bytes at k = 15.  The adds
+// compile to IMAD/VIADD on the FP32 lanes, though, and what holds the
+// kernel is the latency of its two dependent loads (the row's ids, then
+// j's list, re-read from L2: e*k*4 bytes): fewer compares and coalesced
+// loads through shared memory both left its time as it was (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,11 +53,70 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int K_MAX = 256;
+constexpr int SEG = 16;  // entries of j's list loaded before their compares
+constexpr unsigned FULL = 0xffffffffu;
 
+// Entries [s0, s0 + SEG) of j's list rj (k entries), padding and entries
+// past k as -2: they never match an own entry (>= 0, or -3).  Adds the
+// valid ones to vj.
+__device__ __forceinline__ void load_seg(int (&v)[SEG], const int* rj,
+                                         int s0, int k, int& vj) {
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) v[s] = s0 + s < k ? rj[s0 + s] : -2;
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) {
+    v[s] = v[s] < 0 ? -2 : v[s];
+    vj += v[s] >= 0;
+  }
+}
+
+__device__ __forceinline__ float jaccard_of(int inter, int vi, int vj) {
+  return (float)inter / fmaxf((float)(vi + vj - inter), 1.f);
+}
+
+// k <= 16: half-warp h of a warp owns row 2 * warp + h, lane l of it
+// slot l.
 __global__ void __launch_bounds__(THREADS)
-    jaccard_kernel(const int* __restrict__ idx, int n, int k,
-                   float* __restrict__ out) {
-  __shared__ int own_s[WARPS][K_MAX];
+    jaccard_half_kernel(const int* __restrict__ idx, int n, int k,
+                        float* __restrict__ out) {
+  const int l = threadIdx.x & 15;
+  const int64_t row = ((int64_t)blockIdx.x * THREADS + threadIdx.x) >> 4;
+  const bool slot = row < n && l < k;
+  const int my = slot ? idx[row * k + l] : -1;
+  // the row's own list, padding and slots past k as -3
+  int own[SEG];
+#pragma unroll
+  for (int u = 0; u < SEG; ++u)
+    own[u] = __shfl_sync(FULL, my < 0 ? -3 : my, u, 16);
+  if (!slot) return;  // no shuffle follows
+  float res = 0.f;
+  if (my >= 0 && my < n) {
+    int vi = 0;
+#pragma unroll
+    for (int u = 0; u < SEG; ++u) vi += own[u] >= 0;
+    int v[SEG], vj = 0;
+    load_seg(v, idx + (int64_t)my * k, 0, k, vj);
+    int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+#pragma unroll
+    for (int s = 0; s < SEG; ++s)
+#pragma unroll
+      for (int u = 0; u < SEG; u += 4) {
+        c0 += v[s] == own[u];
+        c1 += v[s] == own[u + 1];
+        c2 += v[s] == own[u + 2];
+        c3 += v[s] == own[u + 3];
+      }
+    res = jaccard_of(c0 + c1 + c2 + c3, vi, vj);
+  }
+  out[row * k + l] = res;
+}
+
+// k > 16 (k <= K): warp w of the block owns row blockIdx.x * WARPS + w.
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+    jaccard_warp_kernel(const int* __restrict__ idx, int n, int k,
+                        float* __restrict__ out) {
+  __shared__ __align__(16) int own_s[WARPS][K];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int64_t row = (int64_t)blockIdx.x * WARPS + warp;
@@ -51,31 +124,47 @@ __global__ void __launch_bounds__(THREADS)
   int* own = own_s[warp];
   const int* ri = idx + row * k;
   int vi = 0;
-  for (int u = lane; u < k; u += 32) {
-    const int id = ri[u];
+  for (int u = lane; u < K; u += 32) {
+    const int id = u < k ? ri[u] : -1;
     own[u] = id < 0 ? -3 : id;
     vi += id >= 0;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    vi += __shfl_xor_sync(0xffffffffu, vi, off);
+    vi += __shfl_xor_sync(FULL, vi, off);
   __syncwarp();
   for (int t = lane; t < k; t += 32) {
     const int j = ri[t];
     float res = 0.f;
     if (j >= 0 && j < n) {
       const int* rj = idx + (int64_t)j * k;
-      int inter = 0, vj = 0;
-      for (int s = 0; s < k; ++s) {
-        int v = rj[s];
-        if (v < 0) v = -2;
-        vj += v >= 0;
-        for (int u = 0; u < k; ++u) inter += v == own[u];
+      int c0 = 0, c1 = 0, c2 = 0, c3 = 0, vj = 0;
+      for (int s0 = 0; s0 < k; s0 += SEG) {
+        int v[SEG];
+        load_seg(v, rj, s0, k, vj);
+#pragma unroll 2
+        for (int u = 0; u < K; u += 4) {
+          const int4 o = *reinterpret_cast<const int4*>(own + u);
+#pragma unroll
+          for (int s = 0; s < SEG; ++s) {
+            c0 += v[s] == o.x;
+            c1 += v[s] == o.y;
+            c2 += v[s] == o.z;
+            c3 += v[s] == o.w;
+          }
+        }
       }
-      res = (float)inter / fmaxf((float)(vi + vj - inter), 1.f);
+      res = jaccard_of(c0 + c1 + c2 + c3, vi, vj);
     }
     out[row * k + t] = res;
   }
+}
+
+template <int K>
+void launch_warp(const int* idx, int n, int k, float* out,
+                 cudaStream_t stream) {
+  jaccard_warp_kernel<K><<<(n + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
+      idx, n, k, out);
 }
 
 }  // namespace
@@ -88,9 +177,22 @@ int sct_graph_jaccard(const void* idx, int n, int k, void* out,
                       void* stream) {
   if (n < 0 || k < 1 || k > K_MAX) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const int blocks = (n + WARPS - 1) / WARPS;
-  jaccard_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), n, k, static_cast<float*>(out));
+  const int* ix = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 16) {
+    const int64_t rows_a_block = THREADS / 16;
+    jaccard_half_kernel<<<(int)((n + rows_a_block - 1) / rows_a_block),
+                          THREADS, 0, s>>>(ix, n, k, o);
+  } else if (k <= 32) {
+    launch_warp<32>(ix, n, k, o, s);
+  } else if (k <= 64) {
+    launch_warp<64>(ix, n, k, o, s);
+  } else if (k <= 128) {
+    launch_warp<128>(ix, n, k, o, s);
+  } else {
+    launch_warp<256>(ix, n, k, o, s);
+  }
   return (int)cudaGetLastError();
 }
 

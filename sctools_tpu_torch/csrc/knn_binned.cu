@@ -5,10 +5,10 @@
 // (its pallas_call at :209, helpers _score_tile and _select_topk).
 //
 // What it computes, per query row i of q (nq, d) against the candidate
-// rows j of c (nc, d), f32 or bf16 (f32 products and accumulation):
-// the scores of csrc/knn_select.cu (cosine q . c, or euclidean
-// -((|q|^2 - 2 q . c) + |c|^2); -inf past nc and for the self pair under
-// exclude_self), then
+// rows j of c (nc, d) (float32 values; bf16 inputs were widened to
+// float32 exactly by the wrapper): the scores of csrc/knn_select.cu
+// (cosine q . c, or euclidean -((|q|^2 - 2 q . c) + |c|^2); -inf past nc
+// and for the self pair under exclude_self), then
 //   * one survivor per bin b in [0, n_bins): the highest score among the
 //     columns j = b (mod n_bins), ties to the lowest column; a bin whose
 //     scores are all -inf keeps id -1;
@@ -17,173 +17,389 @@
 //     come out as 1025 first at n_bins = 1024); a slot with no finite
 //     value holds -inf and id -1.
 // When nc <= n_bins every candidate owns its bin, and the output is the
-// exact kernel's.  Otherwise two of a query's true top k that share a bin
-// lose the weaker one: about k^2 / (2 n_bins) neighbours per query.
+// exact kernel's, bit for bit.  Otherwise two of a query's true top k
+// that share a bin lose the weaker one: about k^2 / (2 n_bins)
+// neighbours per query.
 //
-// Design.  The Pallas kernel folds each (qb, cb) score tile into an
-// (qb, n_bins) accumulator held in VMEM across the candidate sweep, and
-// selects once at the end.  An (64, 1024) accumulator of (value, id)
+// Design.  The Pallas kernel folds each (qb, cb) score tile into a (qb,
+// n_bins) accumulator held in VMEM across the candidate sweep, and
+// selects once at the end.  A (64, 1024) accumulator of (value, id)
 // pairs is 512 KB, more than a block's shared memory, so here the sweep
-// is reordered by bin: n_bins is a multiple of 64 (the wrapper rounds it
-// to 128), so the 64-column candidate tile at c0 covers the 64 bins
-// [c0 mod n_bins, +64) without wrapping.  For each such chunk of 64 bins
-// the block visits its tiles c0 = b0, b0 + n_bins, b0 + 2 n_bins, ... in
-// ascending order, and each thread keeps the running maximum of its own
-// 4x4 cells in registers (a strictly greater score replaces it, so ties
-// keep the lower column).  When a chunk is done its survivors are final:
-// they go through the score tile in shared memory into the per-thread
-// sorted top-k lists of knn_select.cu, whose threads scan their bins in
-// ascending order; the lists are merged by warp shuffles with ties to
-// the lower bin.  Every candidate tile is staged and scored once, by the
-// score loop that csrc/knn_tile.cuh shares with the exact kernel.
+// is reordered by bin, on the exact kernel's core (knn_core.cuh: packed
+// operands, the cp.async.bulk ring, the register tile, the lists and
+// their merges, the norms launch and the split merge):
+//   * n_bins is a multiple of CB = 128 (the wrapper rounds it), so the
+//     packed candidate tile at c0 covers the CB bins [c0 mod n_bins,
+//     + CB) without wrapping: one chunk of bins.  For each chunk, in
+//     ascending order, the block visits its tiles c0 = b0, b0 + n_bins,
+//     b0 + 2 n_bins, ... (rounds 0, 1, 2, ...): only the tile the ring's
+//     `issue` maps a stage to differs from the exact kernel.
+//   * After each tile, each lane folds its TM x TN cells (masked and, for
+//     euclidean, transformed as in knn_select.cu) into a running maximum
+//     in registers.  A strictly greater score replaces the kept one, so
+//     ties keep the lower round, the lower column.  The round of each
+//     kept maximum goes to shared memory, stored only on a replacement
+//     (TM * TN * 4 bytes a thread, 64 KB a block): 64 more registers
+//     would pass the 255 a thread allows.
+//   * When a chunk is done its survivors are final.  They go through the
+//     exact kernel's register filter, row buffers and bitonic merges
+//     (take_cells, merge_row) under (value descending, key ascending),
+//     with key = bin * R + round and R = ceil(nc / n_bins): a bijection
+//     onto the id round * n_bins + bin that orders by bin first, and the
+//     id itself when n_bins >= nc (R = 1).  Between chunks a warp's lists
+//     wait in the split's slice of the output, in device memory, read
+//     back by the lanes that wrote them, so that they hold no registers
+//     during the sweep; the last chunk writes the ids.
+//   * Splits go over bin chunks, not candidate ranges: S = min(SPLITS,
+//     chunks) blocks a query tile, each over a contiguous range of
+//     chunks, so one block holds each bin whole (a bin split over two
+//     blocks would need a max per bin before the top k, which no list
+//     merge gives).  knn_merge_kernel then merges the S lists, the lower
+//     split first on equal values: the lower bins.
 //
 // Bound on an H100: 2*nq*nc*d FLOPs on the CUDA cores in f32 (67 TFLOP/s
-// peak), as for knn_select.cu; the merge adds one compare per score and
-// one insertion check per survivor instead of one per score.
+// peak), as for knn_select.cu.  The fold adds about three instructions a
+// cell and tile (compare, select, predicated store) to the score loop's
+// d * (TM * TN + TM / 4 + TN / 4 + a few) (FFMA and loads); the
+// selection sees one survivor per bin and chunk, n_bins / nc of the
+// candidates the exact kernel's filter sees.  Since the selection needs
+// little hiding, the sizes differ from knn_select.cu's: 8 x 8 cells a
+// lane (64 FFMA per 4 shared loads) in 128-query blocks, one an SM,
+// beat 4 x 8 at two an SM; 8 splits (one 128-bin chunk each at 1024
+// bins), a ring of 3 whole-tile stages and 10 feature rows a turn of the
+// score loop (knn_kernel_sweep.py --binned, PERF.md).
 
-#include "knn_tile.cuh"
+#ifndef KNN_TM
+#define KNN_TM 8
+#endif
+#ifndef KNN_TN
+#define KNN_TN 8
+#endif
+#ifndef KNN_SPLITS
+#define KNN_SPLITS 8
+#endif
+#ifndef KNN_RING
+#define KNN_RING 3
+#endif
+#ifndef KNN_MINB
+#define KNN_MINB 1
+#endif
+#ifndef KNN_UNROLL
+#define KNN_UNROLL 10
+#endif
+
+#include "knn_core.cuh"
 
 namespace {
 
-using namespace sct_knn;
+// The rounds of the kept maxima: cell (i, e) of thread t at
+// [(i * TN + e) * THREADS + t].
+constexpr size_t ROUND_BYTES = sizeof(int) * TM * TN * THREADS;
 
-template <typename T, int K>
-__global__ void __launch_bounds__(THREADS)
-    knn_binned_kernel(const T* __restrict__ q, const T* __restrict__ c,
-                      int nq, int nc, int d, int k, int n_bins, int euclid,
-                      int exclude_self, float* __restrict__ out_v,
-                      int* __restrict__ out_i) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                   // [d][TS]
-  float* cs = qs + d * TS;                            // [d][TS]
-  float* st = cs + d * TS;                            // [QB][SS] values
-  int* sid = reinterpret_cast<int*>(st + QB * SS);    // [QB][SS] ids
-  float* qn = reinterpret_cast<float*>(sid + QB * SS);  // [QB]
-  float* cn = qn + QB;                                // [CB]
+// Fold a scored tile (its first column c0, round r) into the running
+// maxima, and clear the cells.  EDGE: the tile reaches past nc or holds
+// a self pair under exclude_self, so its cells are masked.
+template <bool EDGE>
+__device__ __forceinline__ void fold(float (&acc)[TM][TN],
+                                     float (&best)[TM][TN], int* kept, int r,
+                                     int c0, int row0, int c0l, int nc,
+                                     int exclude_self,
+                                     const float* __restrict__ qn,
+                                     const float* __restrict__ cn) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + 8 * (i / 4) + i % 4;
+#pragma unroll
+    for (int e = 0; e < TN; ++e) {
+      const int gcol = c0 + c0l + 64 * (e / 4) + e % 4;
+      float val = acc[i][e];
+      if (qn != nullptr) val = -((qn[row] - 2.f * val) + cn[gcol]);
+      if (EDGE && (gcol >= nc || (exclude_self && gcol == row)))
+        val = -CUDART_INF_F;
+      acc[i][e] = 0.f;
+      if (val > best[i][e]) {
+        best[i][e] = val;
+        kept[(i * TN + e) * THREADS] = r;
+      }
+    }
+  }
+}
+
+// A row's list as the lanes left it in device memory at the last chunk's
+// end (v, id: the row's k entries), or empty when `fresh`.
+template <int SL>
+__device__ __forceinline__ List<SL> load_list(const float* v, const int* id,
+                                              int k, int lane, bool fresh) {
+  List<SL> l;
+  float last = -CUDART_INF_F;
+  int last_i = NO_ID;
+#pragma unroll
+  for (int w = 0; w < SL; ++w) {
+    const int jj = w * 32 + lane;
+    const bool have = !fresh && jj < k;
+    l.v[w] = have ? v[jj] : -CUDART_INF_F;
+    l.id[w] = have ? id[jj] : NO_ID;
+    if (w == (k - 1) / 32) last = l.v[w], last_i = l.id[w];
+  }
+  l.tv = __shfl_sync(FULL, last, (k - 1) % 32);
+  l.ti = __shfl_sync(FULL, last_i, (k - 1) % 32);
+  return l;
+}
+
+// Store a row's list: its keys, or at the split's `last` chunk the ids
+// they code (round * n_bins + bin), -1 where no finite value is.
+template <int SL>
+__device__ __forceinline__ void store_list(const List<SL>& l, float* v,
+                                           int* id, int k, int lane,
+                                           bool last, int R, int n_bins) {
+#pragma unroll
+  for (int w = 0; w < SL; ++w) {
+    const int jj = w * 32 + lane;
+    if (jj >= k) continue;
+    const int key = l.id[w];
+    v[jj] = l.v[w];
+    id[jj] = !last ? key
+                   : isfinite(l.v[w]) ? key % R * n_bins + key / R : -1;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(THREADS, KNN_MINB)
+    knn_binned_kernel(const float* __restrict__ qP,
+                      const float* __restrict__ cP,
+                      const float* __restrict__ qn,
+                      const float* __restrict__ cn, int nq, int nc, int d,
+                      int kc, int nring, int k, int n_bins, int R,
+                      int nchunks, int full_chunks, int exclude_self,
+                      float* __restrict__ out_v, int* __restrict__ out_i) {
+  constexpr int SL = (K + 31) / 32;  // list slots a lane
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem m = carve(smem, d, kc, nring);
+  int* kept = reinterpret_cast<int*>(m.end) + threadIdx.x;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * QB;
-  const int tx = tid % 16, ty = tid / 16;  // score cells: 4x4 per thread
-  const int r = tid / SUBS, sub = tid % SUBS;  // selection: query, part
+  // This split's chunks [ch0, ch1): the first nfull take R rounds, the
+  // rest R - 1 (their last round would start past nc).
+  const int ch0 = (int)((int64_t)nchunks * blockIdx.y / gridDim.y);
+  const int ch1 = (int)((int64_t)nchunks * (blockIdx.y + 1) / gridDim.y);
+  const int nfull = min(max(full_chunks - ch0, 0), ch1 - ch0);
+  const int chunks = (d + kc - 1) / kc;  // stages a tile
+  const int stages = (nfull * R + (ch1 - ch0 - nfull) * (R - 1)) * chunks;
+  const int step = n_bins / CB;  // tiles from one round of a chunk to the next
 
-  stage_queries(qs, qn, q, q0, nq, d, euclid);
-  float v[K];
-  int id[K];
-  init_list<K>(v, id, k);
+  const int warp = tid >> 5, lane = tid & 31;
+  // Stage s of the sweep: visit v = s / chunks -- chunk by chunk, rounds
+  // ascending -- feature rows from (s % chunks) * kc, into ring buffer
+  // s % nring.
+  auto issue = [&](int st) {
+    const int v = st / chunks;
+    int ch, r;
+    if (v < nfull * R) {
+      ch = ch0 + v / R, r = v % R;
+    } else {
+      const int u = v - nfull * R;
+      ch = ch0 + nfull + u / (R - 1), r = u % (R - 1);
+    }
+    const int k0 = st % chunks * kc;
+    const int b = st % nring;
+    bulk_load(m.ring + b * kc * CB,
+              cP + ((int64_t)(ch + r * step) * d + k0) * CB,
+              min(kc, d - k0) * CB * 4, m.full + b);
+  };
+  ring_start(m, qP + (int64_t)blockIdx.x * d * QB, d, nring, stages, issue);
+  __syncthreads();
+  const int g = lane >> 4;                     // which row of each pair
+  const int r0 = warp * RW + 4 * g;            // rows r0 + 8h + i
+  const int c0l = 4 * (lane & 15);             // columns c0l + 64h + j
+  float* wbv = m.buf_v + warp * RW * CAP;      // the warp's row buffers
+  int* wbi = m.buf_i + warp * RW * CAP;
+  const int64_t slice = (int64_t)blockIdx.y * nq * k;
 
-  for (int b0 = 0; b0 < n_bins && b0 < nc; b0 += CB) {
-    // survivors of this thread's cells of the bin chunk [b0, b0 + 64)
-    float best[4][4];
-    int bid[4][4];
+  float acc[TM][TN], best[TM][TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        best[i][j] = -CUDART_INF_F;
-        bid[i][j] = -1;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f, best[i][j] = -CUDART_INF_F;
+  // the stage being scored: chunk ch (of `rounds` rounds), round r, stage j
+  // of the tile
+  int ch = ch0, rounds = nfull > 0 ? R : R - 1, r = 0, j = 0;
+
+  if (stages > 0) bar_wait(m.qbar, 0);
+  for (int s = 0; s < stages; ++s) {
+    const int b = s % nring;
+    bar_wait(m.full + b, (s / nring) & 1);  // stage s is in
+    const int k0 = j * kc;
+    score_stage(acc, m.qs + k0 * QB, m.ring + b * kc * CB, min(kc, d - k0),
+                r0, c0l);
+    release(m.done, b, s, nring, stages, lane, issue);
+    if (++j < chunks) continue;
+    j = 0;
+
+    const int c0 = (ch + r * step) * CB;
+    if (c0 + CB > nc || (exclude_self && c0 < q0 + QB && q0 < c0 + CB))
+      fold<true>(acc, best, kept, r, c0, q0 + r0, c0l, nc, exclude_self, qn,
+                 cn);
+    else
+      fold<false>(acc, best, kept, r, c0, q0 + r0, c0l, nc, exclude_self, qn,
+                  cn);
+    if (++r < rounds) continue;
+
+    // Chunk ch is done: its survivors, bins ch * CB + c0l + 64h + j, go
+    // to the lists of the warp's rows, pair by pair (rows A = 8h + i of
+    // lanes 0-15 and B = A + 4 of lanes 16-31, as in knn_select.cu).
+    const bool fresh = ch == ch0, last = ch + 1 == ch1;
+#pragma unroll
+    for (int hi = 0; hi < TM / 4; ++hi)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int A = 8 * hi + i, B = A + 4, c = hi * 4 + i;
+        const int qa = q0 + warp * RW + A, qb = q0 + warp * RW + B;
+        Pair<SL> p;
+        p.a = load_list<SL>(out_v + slice + (int64_t)qa * k,
+                            out_i + slice + (int64_t)qa * k, k, lane,
+                            fresh || qa >= nq);
+        p.b = load_list<SL>(out_v + slice + (int64_t)qb * k,
+                            out_i + slice + (int64_t)qb * k, k, lane,
+                            fresh || qb >= nq);
+        p.na = p.nb = 0;
+        const float tv = g ? p.b.tv : p.a.tv;
+        const int ti = g ? p.b.ti : p.a.ti;
+        const bool row_ok = (g ? qb : qa) < nq;
+        Cells<true> cl;
+        bool any = false;
+#pragma unroll
+        for (int e = 0; e < TN; ++e) {
+          const float v = row_ok ? best[c][e] : -CUDART_INF_F;
+          const int bin = ch * CB + c0l + 64 * (e / 4) + e % 4;
+          cl.v[e] = v;
+          cl.key[e] = v > -CUDART_INF_F
+                          ? bin * R + kept[(c * TN + e) * THREADS]
+                          : NO_ID;
+          any |= enters(v, cl.key[e], tv, ti);
+          best[c][e] = -CUDART_INF_F;
+        }
+        if (__any_sync(FULL, any)) {
+          __syncwarp();
+          p = take_cells<SL, true>(p, cl, 0, wbv + A * CAP, wbi + A * CAP,
+                                   wbv + B * CAP, wbi + B * CAP, k, lane);
+          if (p.na > 0)
+            p.a = merge_row<SL>(p.a, wbv + A * CAP, wbi + A * CAP, p.na, k,
+                                lane);
+          if (p.nb > 0)
+            p.b = merge_row<SL>(p.b, wbv + B * CAP, wbi + B * CAP, p.nb, k,
+                                lane);
+        } else if (!fresh && !last) {
+          continue;  // the lists in memory stand
+        }
+        if (qa < nq)
+          store_list<SL>(p.a, out_v + slice + (int64_t)qa * k,
+                         out_i + slice + (int64_t)qa * k, k, lane, last, R,
+                         n_bins);
+        if (qb < nq)
+          store_list<SL>(p.b, out_v + slice + (int64_t)qb * k,
+                         out_i + slice + (int64_t)qb * k, k, lane, last, R,
+                         n_bins);
       }
-    for (int c0 = b0; c0 < nc; c0 += n_bins) {
-      stage_candidates(cs, cn, c, c0, nc, d, euclid);
-      float s[4][4];
-      score_cells(qs, cs, qn, cn, d, q0, c0, nc, euclid, exclude_self, s);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (s[i][j] > best[i][j]) {
-            best[i][j] = s[i][j];
-            bid[i][j] = c0 + tx * 4 + j;
-          }
-    }
-
-    __syncthreads();  // the previous chunk's scan is done with st, sid
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      *reinterpret_cast<float4*>(st + row * SS + tx * 4) =
-          make_float4(best[i][0], best[i][1], best[i][2], best[i][3]);
-      *reinterpret_cast<int4*>(sid + row * SS + tx * 4) =
-          make_int4(bid[i][0], bid[i][1], bid[i][2], bid[i][3]);
-    }
-    __syncthreads();
-
-    // bins b0 + sub*CPT + jj, in ascending order: equal values keep the
-    // lower bin first
-    const float* srow = st + r * SS + sub * CPT;
-    const int* irow = sid + r * SS + sub * CPT;
-#pragma unroll 1
-    for (int jj = 0; jj < CPT; ++jj) {
-      const float sv = srow[jj];
-      if (sv > v[K - 1]) insert<K>(v, id, sv, irow[jj]);
-    }
+    r = 0;
+    ++ch;
+    rounds = ch - ch0 < nfull ? R : R - 1;
   }
 
-  // Merge the SUBS lists of each query, ties to the lower bin.
-  merge_write<K>(v, id, k, q0 + r, nq, sub, n_bins, out_v, out_i);
+  if (ch0 == ch1) {  // no candidates: every slot empty
+    for (int q = 0; q < RW; ++q) {
+      const int qrow = q0 + warp * RW + q;
+      if (qrow >= nq) continue;
+      for (int jj = lane; jj < k; jj += 32) {
+        out_v[slice + (int64_t)qrow * k + jj] = -CUDART_INF_F;
+        out_i[slice + (int64_t)qrow * k + jj] = -1;
+      }
+    }
+  }
 }
 
-template <typename T, int K>
-cudaError_t launch(const void* q, const void* c, int nq, int nc, int d,
+template <int K>
+cudaError_t launch(const float* qP, const float* cP, int nq, int nc, int d,
                    int k, int n_bins, int euclid, int exclude_self,
-                   float* out_v, int* out_i, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, 1);
-  auto kern = knn_binned_kernel<T, K>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((nq + QB - 1) / QB);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(c), nq, nc, d, k,
-      n_bins, euclid, exclude_self, out_v, out_i);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_k(const void* q, const void* c, int nq, int nc, int d,
-                     int k, int n_bins, int euclid, int exclude_self,
-                     float* out_v, int* out_i, cudaStream_t stream) {
-  if (k <= 16)
-    return launch<T, 16>(q, c, nq, nc, d, k, n_bins, euclid, exclude_self,
-                         out_v, out_i, stream);
-  if (k <= 32)
-    return launch<T, 32>(q, c, nq, nc, d, k, n_bins, euclid, exclude_self,
-                         out_v, out_i, stream);
-  if (k <= 64)
-    return launch<T, 64>(q, c, nq, nc, d, k, n_bins, euclid, exclude_self,
-                         out_v, out_i, stream);
-  if (k <= 128)
-    return launch<T, 128>(q, c, nq, nc, d, k, n_bins, euclid, exclude_self,
-                          out_v, out_i, stream);
-  return launch<T, 256>(q, c, nq, nc, d, k, n_bins, euclid, exclude_self,
-                        out_v, out_i, stream);
+                   float* out_v, int* out_i, float* scratch,
+                   cudaStream_t stream) {
+  int kc, nring;
+  stage_shape(d, ROUND_BYTES, &kc, &nring);
+  const size_t smem = smem_bytes(d, kc, nring, ROUND_BYTES);
+  auto kern = knn_binned_kernel<K>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)  // two blocks an SM need the largest carveout
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  // rounds a chunk at most; chunks that hold a column; chunks whose
+  // round R - 1 still starts below nc
+  const int R = nc > n_bins ? (nc - 1) / n_bins + 1 : 1;
+  const int nchunks = (min(nc, n_bins) + CB - 1) / CB;
+  const int full_chunks =
+      min(nchunks, (nc - (R - 1) * n_bins + CB - 1) / CB);
+  const int splits = max(1, min(SPLITS, nchunks));
+  Scratch sc;
+  e = scratch_and_norms(qP, cP, nq, nc, d, k, splits, euclid, out_v, out_i,
+                        scratch, stream, &sc);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((nq + QB - 1) / QB, splits);
+  kern<<<grid, THREADS, smem, stream>>>(qP, cP, sc.qn, sc.cn, nq, nc, d, kc,
+                                        nring, k, n_bins, R, nchunks,
+                                        full_chunks, exclude_self, sc.sv,
+                                        sc.si);
+  return merge_splits(sc, nq, k, splits, out_v, out_i, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (nq, d) and c (nc, d) row-major, float (is_bf16 == 0) or bf16;
-// n_bins a positive multiple of 64 and >= k; out_v (nq, k) float and
-// out_i (nq, k) int32.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// The binned kernel's sizes and registers, as sct_knn_select_layout gives
+// the exact kernel's: out[0] queries a block, out[1] candidates a tile,
+// out[2] most splits, out[3] stages in flight at most, out[4] / out[5]
+// rows and columns a lane, out[6] / out[7] registers and local bytes a
+// thread at K = 16, out[8] / out[9] at K = 32.
+int sct_knn_binned_layout(void* out) {
+  return layout(static_cast<int*>(out), knn_binned_kernel<16>,
+                knn_binned_kernel<32>);
+}
+
+// q and c packed tile-major as float (pack_tiles in ops/knn_kernel.py),
+// as sct_knn_select takes them; n_bins a positive multiple of CB, >= k,
+// with nc + n_bins < 2^31; out_v (nq, k) float and out_i (nq, k) int32;
+// scratch as sct_knn_select's (2 * SPLITS * nq * k floats when SPLITS > 1,
+// then for euclid round_up(nq, QB) + round_up(nc, CB)).  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int sct_knn_binned(const void* q, const void* c, int nq, int nc, int d,
-                   int k, int n_bins, int is_bf16, int euclid,
-                   int exclude_self, void* out_v, void* out_i,
-                   void* stream) {
+                   int k, int n_bins, int euclid, int exclude_self,
+                   void* out_v, void* out_i, void* scratch, void* stream) {
   if (nq < 0 || nc < 0 || d < 1 || d > D_MAX || k < 1 || k > K_MAX ||
-      n_bins < k || n_bins % CB != 0)
+      n_bins < k || n_bins % CB != 0 || (int64_t)nc + n_bins > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (nq == 0) return 0;
+  const float* qP = static_cast<const float*>(q);
+  const float* cP = static_cast<const float*>(c);
   float* ov = static_cast<float*>(out_v);
   int* oi = static_cast<int*>(out_i);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch_k<__nv_bfloat16>(q, c, nq, nc, d, k, n_bins, euclid,
-                                        exclude_self, ov, oi, s);
-  return (int)launch_k<float>(q, c, nq, nc, d, k, n_bins, euclid,
-                              exclude_self, ov, oi, s);
+  if (k <= 16)
+    return (int)launch<16>(qP, cP, nq, nc, d, k, n_bins, euclid,
+                           exclude_self, ov, oi, sc, s);
+  if (k <= 32)
+    return (int)launch<32>(qP, cP, nq, nc, d, k, n_bins, euclid,
+                           exclude_self, ov, oi, sc, s);
+  if (k <= 64)
+    return (int)launch<64>(qP, cP, nq, nc, d, k, n_bins, euclid,
+                           exclude_self, ov, oi, sc, s);
+  if (k <= 128)
+    return (int)launch<128>(qP, cP, nq, nc, d, k, n_bins, euclid,
+                            exclude_self, ov, oi, sc, s);
+  return (int)launch<256>(qP, cP, nq, nc, d, k, n_bins, euclid, exclude_self,
+                          ov, oi, sc, s);
 }
 
 }  // extern "C"

@@ -67,266 +67,18 @@
 //     sorted lists of each query.  The splits cover ascending id ranges,
 //     so taking the lower split on equal values keeps ties at the lower
 //     id.  No atomics: the result repeats bit for bit.
-// The arithmetic of every score is that of the earlier 4x4 core that
-// knn_binned.cu still runs (knn_tile.cuh), and the selection is exact
-// under the same order, so with n_bins >= nc the two kernels give equal
-// bits.
+// The ring, the register tile, the lists, the merges and the norms are
+// the core this kernel shares with knn_binned.cu (knn_core.cuh).  Every
+// score is the fmaf chain of the earlier 4x4 core (PR 3), and the
+// selection is exact under (value, id), so with n_bins >= nc knn_binned
+// gives this kernel's bits.
 //
 // TM, TN, SPLITS, KC, RING and MINB were chosen with knn_kernel_sweep.py
 // (PERF.md), which builds this file again with -D sizes.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
-
-#ifndef KNN_TM
-#define KNN_TM 4  // query rows of the score tile a lane holds
-#endif
-#ifndef KNN_TN
-#define KNN_TN 8  // candidate columns a lane holds
-#endif
-#ifndef KNN_SPLITS
-#define KNN_SPLITS 2  // contiguous candidate ranges, each its own block
-#endif
-#ifndef KNN_KC
-#define KNN_KC 64  // most feature rows a stage holds
-#endif
-#ifndef KNN_RING
-#define KNN_RING 2  // candidate stages in flight at most
-#endif
-#ifndef KNN_MINB
-#define KNN_MINB 2  // blocks an SM the registers must allow
-#endif
+#include "knn_core.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;         // 8 warps
-constexpr int TM = KNN_TM;
-constexpr int TN = KNN_TN;
-constexpr int RW = 2 * TM;           // query rows a warp scores and selects
-constexpr int QB = 8 * RW;           // queries a block
-constexpr int CB = 16 * TN;          // candidates a tile
-constexpr int SPLITS = KNN_SPLITS;
-constexpr int KC = KNN_KC;
-constexpr int CAP = 32;             // entries a row buffer holds
-constexpr int RING_MAX = KNN_RING;  // candidate stages in flight at most
-constexpr int BAR_BYTES = 128;      // the mbarriers, before the tiles
-constexpr int D_MAX = 256;
-constexpr int K_MAX = 256;
-constexpr int SMEM_MAX = 232448;     // dynamic shared memory of a block
-constexpr int MERGE_THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int NO_ID = 0x7fffffff;  // a list entry not yet filled
-static_assert(TM % 4 == 0 && TN % 4 == 0 && TM <= 8 && TN <= 8,
-              "4 or 8 rows and columns a lane");
-static_assert(SPLITS >= 1 && KC >= 1 && RING_MAX >= 2 && RING_MAX <= 8,
-              "sizes");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-// Wait until the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-// Copy `bytes` (a multiple of 16) from global src to shared dst; the copy
-// completes on `bar`, which the caller has told to expect the bytes.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// (av, ai) comes before (bv, bi) in the selection's order: value
-// descending, then id ascending.
-__device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
-
-// A finite-or-+inf cell (v, c) that comes before a row's entry k - 1
-// (tv, ti): it may enter the row's top k.  Masked cells (-inf) never do.
-__device__ __forceinline__ bool enters(float v, int c, float tv, int ti) {
-  return v > -CUDART_INF_F && before(v, c, tv, ti);
-}
-
-// One compare-exchange stage of a bitonic network over the 32 lanes: the
-// lower lane of each pair keeps the element that comes first when
-// `desc`, the later one otherwise.
-__device__ __forceinline__ void exchange(float& v, int& i, int lane,
-                                         int stride, bool desc) {
-  const float ov = __shfl_xor_sync(FULL, v, stride);
-  const int oi = __shfl_xor_sync(FULL, i, stride);
-  const bool lower = (lane & stride) == 0;
-  if (before(v, i, ov, oi) != (lower == desc)) v = ov, i = oi;
-}
-
-// Sort a bitonic sequence over the warp into the selection's order.
-__device__ __forceinline__ void bitonic_merge(float& v, int& i, int lane) {
-#pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1)
-    exchange(v, i, lane, stride, true);
-}
-
-// A top-k list spread over a warp: entry j (j < k) in lane j % 32, slot
-// j / 32, in the selection's order; entries past k and those not yet
-// filled are (-inf, NO_ID).  (tv, ti) is entry k - 1: only a candidate
-// before it can enter.
-template <int SL>
-struct List {
-  float v[SL];
-  int id[SL];
-  float tv;
-  int ti;
-};
-
-// Merge into a list the cnt entries of a row's buffer (shared memory,
-// written by the warp) and keep the first k.  The buffer is sorted by a
-// bitonic network, then each slot in turn keeps the first 32 of itself
-// and the carry and passes the rest on.  Out of line: one copy of the
-// network serves every row (inlined at each call, the kernel's code
-// outgrew the instruction cache; PERF.md).
-template <int SL>
-__device__ __noinline__ List<SL> merge_row(List<SL> l, const float* bv,
-                                           const int* bi, int cnt, int k,
-                                           int lane) {
-  __syncwarp();  // the buffer's writes are visible
-  float cv = lane < cnt ? bv[lane] : -CUDART_INF_F;
-  int ci = lane < cnt ? bi[lane] : NO_ID;
-  __syncwarp();  // read before the next appends overwrite it
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1)
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1)
-      exchange(cv, ci, lane, stride, (lane & size) == 0);
-  float last = 0.f;
-  int last_i = 0;
-#pragma unroll
-  for (int w = 0; w < SL; ++w) {
-    const float rv = __shfl_sync(FULL, cv, 31 - lane);  // ascending
-    const int ri = __shfl_sync(FULL, ci, 31 - lane);
-    const bool mine = before(l.v[w], l.id[w], rv, ri);
-    const float hv = mine ? l.v[w] : rv, lo_v = mine ? rv : l.v[w];
-    const int hi = mine ? l.id[w] : ri, lo_i = mine ? ri : l.id[w];
-    l.v[w] = hv, l.id[w] = hi;
-    bitonic_merge(l.v[w], l.id[w], lane);
-    if (w + 1 < SL) {
-      cv = lo_v, ci = lo_i;
-      bitonic_merge(cv, ci, lane);
-    }
-    if (w * 32 + lane >= k) l.v[w] = -CUDART_INF_F, l.id[w] = NO_ID;
-    if (w == (k - 1) / 32) last = l.v[w], last_i = l.id[w];
-  }
-  l.tv = __shfl_sync(FULL, last, (k - 1) % 32);
-  l.ti = __shfl_sync(FULL, last_i, (k - 1) % 32);
-  return l;
-}
-
-// The cells of a row pair, each lane's TN cells of its row (rows A and
-// B: lanes 0-15 and 16-31), with the rows' lists and buffer counts.
-struct Cells {
-  float v[TN];
-};
-template <int SL>
-struct Pair {
-  List<SL> a, b;
-  int na, nb;
-};
-
-// Append a row pair's cells that may enter to the rows' buffers: all at
-// once when they fit, else two cells a lane at a time (at most 32 a row),
-// merging a buffer first when they would not fit.  Out of line, like
-// merge_row, and called only for a pair with such a cell.  col0 is the
-// column of cell 0.
-template <int SL>
-__device__ __noinline__ Pair<SL> take_cells(Pair<SL> p, Cells c, int col0,
-                                            float* bva, int* bia, float* bvb,
-                                            int* bib, int k, int lane) {
-  __syncwarp();  // converged: the warp intrinsics below take their fast form
-  const int g = lane >> 4;
-  const unsigned below = (1u << (lane & 15)) - 1u;
-  {
-    const float tv = g ? p.b.tv : p.a.tv;
-    const int ti = g ? p.b.ti : p.a.ti;
-    unsigned m[TN];
-    int na = 0, nb = 0;  // the cells that pass, of rows A and B
-#pragma unroll
-    for (int e = 0; e < TN; ++e) {
-      m[e] = __ballot_sync(FULL, enters(c.v[e], col0 + 64 * (e / 4) + e % 4,
-                                        tv, ti));
-      na += __popc(m[e] & 0xffffu);
-      nb += __popc(m[e] >> 16);
-    }
-    if (p.na + na <= CAP && p.nb + nb <= CAP) {
-      int at = g ? p.nb : p.na;
-      float* bv = g ? bvb : bva;
-      int* bi = g ? bib : bia;
-#pragma unroll
-      for (int e = 0; e < TN; ++e) {
-        const unsigned h = g ? m[e] >> 16 : m[e] & 0xffffu;
-        if ((h >> (lane & 15)) & 1u) {
-          const int pos = at + __popc(h & below);
-          bv[pos] = c.v[e];
-          bi[pos] = col0 + 64 * (e / 4) + e % 4;
-        }
-        at += __popc(h);
-      }
-      p.na += na;
-      p.nb += nb;
-      return p;
-    }
-  }
-#pragma unroll
-  for (int e0 = 0; e0 < TN; e0 += 2) {
-    const int col = col0 + 64 * (e0 / 4) + e0 % 4;
-    const float tv = g ? p.b.tv : p.a.tv;
-    const int ti = g ? p.b.ti : p.a.ti;
-    const bool p0 = enters(c.v[e0], col, tv, ti);
-    const bool p1 = enters(c.v[e0 + 1], col + 1, tv, ti);
-    const unsigned m0 = __ballot_sync(FULL, p0);
-    const unsigned m1 = __ballot_sync(FULL, p1);
-    const int na = __popc(m0 & 0xffffu) + __popc(m1 & 0xffffu);
-    const int nb = __popc(m0 >> 16) + __popc(m1 >> 16);
-    if (p.na + na > CAP) p.a = merge_row<SL>(p.a, bva, bia, p.na, k, lane), p.na = 0;
-    if (p.nb + nb > CAP) p.b = merge_row<SL>(p.b, bvb, bib, p.nb, k, lane), p.nb = 0;
-    const unsigned h0 = g ? m0 >> 16 : m0 & 0xffffu;
-    const unsigned h1 = g ? m1 >> 16 : m1 & 0xffffu;
-    const int base = g ? p.nb : p.na;
-    float* bv = g ? bvb : bva;
-    int* bi = g ? bib : bia;
-    if (p0) {
-      const int at = base + __popc(h0 & below);
-      bv[at] = c.v[e0], bi[at] = col;
-    }
-    if (p1) {
-      const int at = base + __popc(h0) + __popc(h1 & below);
-      bv[at] = c.v[e0 + 1], bi[at] = col + 1;
-    }
-    p.na += na;
-    p.nb += nb;
-  }
-  return p;
-}
 
 template <int K>
 __global__ void __launch_bounds__(THREADS, KNN_MINB)
@@ -338,13 +90,7 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
                       float* __restrict__ out_v, int* __restrict__ out_i) {
   constexpr int SL = (K + 31) / 32;  // list slots a lane
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [RING_MAX]
-  uint64_t* qbar = full + RING_MAX;
-  int* done = reinterpret_cast<int*>(qbar + 1);  // [RING_MAX] warps done
-  float* qs = reinterpret_cast<float*>(smem + BAR_BYTES);  // [d][QB]
-  float* ring = qs + d * QB;          // nring x [kc][CB], candidate chunks
-  float* buf_v = ring + nring * kc * CB;  // [QB][CAP], row buffers
-  int* buf_i = reinterpret_cast<int*>(buf_v + QB * CAP);
+  const Smem m = carve(smem, d, kc, nring);
   const bool euclid = qn != nullptr;
 
   const int tid = threadIdx.x;
@@ -362,24 +108,17 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   auto issue = [&](int st) {
     const int k0 = st % chunks * kc;
     const int b = st % nring;
-    bulk_load(ring + b * kc * CB,
+    bulk_load(m.ring + b * kc * CB,
               cP + ((int64_t)(t_begin + st / chunks) * d + k0) * CB,
-              min(kc, d - k0) * CB * 4, full + b);
+              min(kc, d - k0) * CB * 4, m.full + b);
   };
-  if (tid == 0) {
-    for (int b = 0; b < nring; ++b) bar_init(full + b, 1), done[b] = 0;
-    bar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (stages > 0)
-      bulk_load(qs, qP + (int64_t)blockIdx.x * d * QB, d * QB * 4, qbar);
-    for (int st = 0; st < nring && st < stages; ++st) issue(st);
-  }
+  ring_start(m, qP + (int64_t)blockIdx.x * d * QB, d, nring, stages, issue);
   __syncthreads();
   const int g = lane >> 4;                     // which row of each pair
   const int r0 = warp * RW + 4 * g;            // rows r0 + 8h + i
   const int c0l = 4 * (lane & 15);             // columns c0l + 64h + j
-  float* wbv = buf_v + warp * RW * CAP;        // the warp's row buffers
-  int* wbi = buf_i + warp * RW * CAP;
+  float* wbv = m.buf_v + warp * RW * CAP;      // the warp's row buffers
+  int* wbi = m.buf_i + warp * RW * CAP;
 
   // The warp's RW lists and, per row, entry k - 1 (only a candidate
   // before it can enter) and the entries in its buffer.
@@ -401,49 +140,14 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   int t = t_begin, j = 0;  // the stage being scored: tile t, chunk j
 
-  if (stages > 0) bar_wait(qbar, 0);
+  if (stages > 0) bar_wait(m.qbar, 0);
   for (int s = 0; s < stages; ++s) {
     const int b = s % nring;
-    bar_wait(full + b, (s / nring) & 1);  // stage s is in
-    const float* cs = ring + b * kc * CB;
+    bar_wait(m.full + b, (s / nring) & 1);  // stage s is in
     const int k0 = j * kc;
-    const int len = min(kc, d - k0);
-    const float* qk = qs + k0 * QB;
-#pragma unroll 2
-    for (int kk = 0; kk < len; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int h = 0; h < TM / 4; ++h) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(qk + kk * QB + r0 + 8 * h);
-        a[h * 4] = x.x, a[h * 4 + 1] = x.y, a[h * 4 + 2] = x.z,
-        a[h * 4 + 3] = x.w;
-      }
-#pragma unroll
-      for (int h = 0; h < TN / 4; ++h) {
-        const float4 y =
-            *reinterpret_cast<const float4*>(cs + kk * CB + c0l + 64 * h);
-        b[h * 4] = y.x, b[h * 4 + 1] = y.y, b[h * 4 + 2] = y.z,
-        b[h * 4 + 3] = y.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int jj = 0; jj < TN; ++jj)
-          acc[i][jj] = fmaf(a[i], b[jj], acc[i][jj]);
-    }
-    // The last warp done with buffer b refills it with stage s + nring.
-    __syncwarp();
-    if (lane == 0) {
-      __threadfence_block();
-      if (atomicAdd(done + b, 1) == 7) {
-        done[b] = 0;
-        if (s + nring < stages) {
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          issue(s + nring);
-        }
-      }
-    }
+    score_stage(acc, m.qs + k0 * QB, m.ring + b * kc * CB, min(kc, d - k0),
+                r0, c0l);
+    release(m.done, b, s, nring, stages, lane, issue);
     if (++j < chunks) continue;
 
     // Tile t is scored.  Rows r0 + 8h + i of the two lane halves form a
@@ -475,11 +179,11 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
         if (!__any_sync(FULL, any)) continue;
         // Some cell of the pair may enter: out of line, so that the tile
         // loop stays small enough for the instruction cache.
-        Cells cl;
+        Cells<false> cl;
 #pragma unroll
         for (int e = 0; e < TN; ++e) cl.v[e] = o[e];
         __syncwarp();
-        const Pair<SL> pr = take_cells<SL>(
+        const Pair<SL> pr = take_cells<SL, false>(
             Pair<SL>{L[A], L[B], cnt[A], cnt[B]}, cl, c0 + c0l, wbv + A * CAP,
             wbi + A * CAP, wbv + B * CAP, wbi + B * CAP, k, lane);
         L[A] = pr.a, L[B] = pr.b, cnt[A] = pr.na, cnt[B] = pr.nb;
@@ -509,111 +213,25 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   }
 }
 
-// |x|^2 of each packed row (tile-major, W rows a tile), by the chain
-// a += x * x over kk = 0 .. d - 1: the squared norms of the euclidean
-// score, in the order of the earlier core.
-__global__ void knn_norms_kernel(const float* __restrict__ p, int n_pad,
-                                 int d, int W, float* __restrict__ out) {
-  const int r = blockIdx.x * MERGE_THREADS + threadIdx.x;
-  if (r >= n_pad) return;
-  const float* x = p + (int64_t)(r / W) * d * W + r % W;
-  float a = 0.f;
-  for (int kk = 0; kk < d; ++kk) a += x[kk * W] * x[kk * W];
-  out[r] = a;
-}
-
-// Merge the SPLITS sorted lists (value descending, ties by id ascending)
-// of each query, one thread a query: the larger head value first; on equal
-// values the lower split, whose ids are lower.  A slot with no finite
-// value gets id -1.
-__global__ void __launch_bounds__(MERGE_THREADS)
-    knn_merge_kernel(const float* __restrict__ sv, const int* __restrict__ si,
-                     int nq, int k, float* __restrict__ out_v,
-                     int* __restrict__ out_i) {
-  const int q = blockIdx.x * MERGE_THREADS + threadIdx.x;
-  if (q >= nq) return;
-  float head[SPLITS];
-  int pos[SPLITS];
-#pragma unroll
-  for (int s = 0; s < SPLITS; ++s) {
-    pos[s] = 0;
-    head[s] = sv[((int64_t)s * nq + q) * k];
-  }
-  for (int t = 0; t < k; ++t) {
-    int b = 0;
-    float bv = head[0];
-#pragma unroll
-    for (int s = 1; s < SPLITS; ++s)
-      if (head[s] > bv) b = s, bv = head[s];
-    int bp = 0;
-#pragma unroll
-    for (int s = 0; s < SPLITS; ++s)
-      if (s == b) {
-        bp = pos[s]++;
-        head[s] = pos[s] < k ? sv[((int64_t)s * nq + q) * k + pos[s]]
-                             : -CUDART_INF_F;
-      }
-    out_v[(int64_t)q * k + t] = bv;
-    out_i[(int64_t)q * k + t] =
-        isfinite(bv) ? si[((int64_t)b * nq + q) * k + bp] : -1;
-  }
-}
-
-inline size_t smem_bytes(int d, int kc, int nring) {
-  return BAR_BYTES + sizeof(float) * ((size_t)d * QB + (size_t)nring * kc * CB +
-                                      (size_t)2 * QB * CAP);
-}
-
-// Feature rows a stage holds: all d (up to KC) when two stages fit beside
-// the query tile, else halved until they do; then as many stages as fit,
-// up to RING_MAX.
-inline void stage_shape(int d, int* kc, int* nring) {
-  int c = d < KC ? d : KC;
-  while (c > 1 && smem_bytes(d, c, 2) > (size_t)SMEM_MAX) c = (c + 1) / 2;
-  int r = 2;
-  while (r < RING_MAX && smem_bytes(d, c, r + 1) <= (size_t)SMEM_MAX) ++r;
-  *kc = c;
-  *nring = r;
-}
-
-inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
-
 template <int K>
 cudaError_t launch(const float* qP, const float* cP, int nq, int nc, int d,
                    int k, int euclid, int exclude_self, float* out_v,
                    int* out_i, float* scratch, cudaStream_t stream) {
   int kc, nring;
-  stage_shape(d, &kc, &nring);
-  const size_t smem = smem_bytes(d, kc, nring);
+  stage_shape(d, 0, &kc, &nring);
+  const size_t smem = smem_bytes(d, kc, nring, 0);
   auto kern = knn_select_kernel<K>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const size_t lists = SPLITS == 1 ? 0 : (size_t)SPLITS * nq * k;
-  float* sv = SPLITS == 1 ? out_v : scratch;
-  int* si = SPLITS == 1 ? out_i : reinterpret_cast<int*>(scratch + lists);
-  float* qn = nullptr;
-  float* cn = nullptr;
-  if (euclid) {
-    const int ldq = round_up(nq, QB), ldc = round_up(nc, CB);
-    qn = scratch + 2 * lists;
-    cn = qn + ldq;
-    knn_norms_kernel<<<(ldq + MERGE_THREADS - 1) / MERGE_THREADS,
-                       MERGE_THREADS, 0, stream>>>(qP, ldq, d, QB, qn);
-    if (ldc > 0)
-      knn_norms_kernel<<<(ldc + MERGE_THREADS - 1) / MERGE_THREADS,
-                         MERGE_THREADS, 0, stream>>>(cP, ldc, d, CB, cn);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
+  Scratch sc;
+  e = scratch_and_norms(qP, cP, nq, nc, d, k, SPLITS, euclid, out_v, out_i,
+                        scratch, stream, &sc);
+  if (e != cudaSuccess) return e;
   const dim3 grid((nq + QB - 1) / QB, SPLITS);
-  kern<<<grid, THREADS, smem, stream>>>(qP, cP, qn, cn, nq, nc, d, kc,
-                                             nring, k, exclude_self, sv, si);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || SPLITS == 1) return e;
-  knn_merge_kernel<<<(nq + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS,
-                     0, stream>>>(sv, si, nq, k, out_v, out_i);
-  return cudaGetLastError();
+  kern<<<grid, THREADS, smem, stream>>>(qP, cP, sc.qn, sc.cn, nq, nc, d, kc,
+                                        nring, k, exclude_self, sc.sv, sc.si);
+  return merge_splits(sc, nq, k, SPLITS, out_v, out_i, stream);
 }
 
 }  // namespace
@@ -629,23 +247,8 @@ extern "C" {
 // out[8] / out[9] at K = 32.  Returns the cudaFuncGetAttributes error
 // (0 on success).
 int sct_knn_select_layout(void* out) {
-  int* o = static_cast<int*>(out);
-  o[0] = QB;
-  o[1] = CB;
-  o[2] = SPLITS;
-  o[3] = RING_MAX;
-  o[4] = TM;
-  o[5] = TN;
-  cudaFuncAttributes a16, a32;
-  cudaError_t e = cudaFuncGetAttributes(&a16, knn_select_kernel<16>);
-  if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&a32, knn_select_kernel<32>);
-  if (e != cudaSuccess) return (int)e;
-  o[6] = a16.numRegs;
-  o[7] = (int)a16.localSizeBytes;
-  o[8] = a32.numRegs;
-  o[9] = (int)a32.localSizeBytes;
-  return 0;
+  return layout(static_cast<int*>(out), knn_select_kernel<16>,
+                knn_select_kernel<32>);
 }
 
 // q and c packed tile-major as float (pack_tiles in ops/knn_kernel.py):

@@ -292,12 +292,12 @@ def jaccard(knn_idx: torch.Tensor, *, band_rows: int | None = None
     if not _kernel_device(knn_idx, "jaccard"):
         return jaccard_plain(knn_idx)
     n, k = knn_idx.shape
-    idx = knn_idx.to(torch.int32).contiguous()
+    idx = _as(knn_idx, torch.int32)
     out = torch.empty((n, k), dtype=torch.float32, device=idx.device)
     if n == 0:
         return out
     lib = cuda_build.library()
-    with torch.cuda.device(idx.device):
+    with _guard(idx.device):
         code = lib.sct_graph_jaccard(idx.data_ptr(), n, k, out.data_ptr(),
                                      _stream(idx.device))
         jaccard.launches += 1

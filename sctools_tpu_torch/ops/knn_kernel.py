@@ -70,28 +70,13 @@ def knn_select(q: torch.Tensor, c: torch.Tensor, *, k: int,
                                 exclude_self=exclude_self)
     if q.device.type != "cuda":
         raise ValueError(f"knn_select runs on cpu or cuda, not {q.device}")
-    nq, d = q.shape
-    out_v = torch.empty((nq, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
-    if nq == 0:
+    out_v, out_i, launch = _packed_launch("sct_knn_select",
+                                          knn_select_layout(), q, c, k,
+                                          metric, exclude_self)
+    if launch is None:
         return out_v, out_i
-    lib = cuda_build.library()
-    layout = knn_select_layout()
-    qb, cb, splits = (layout["query_tile"], layout["cand_tile"],
-                      layout["splits"])
-    qp = pack_tiles(q, qb)
-    cp = qp if c is q and qb == cb else pack_tiles(c, cb)
-    euclid = metric == "euclidean"
-    lists = 2 * splits * nq * k if splits > 1 else 0
-    norms = round_up(nq, qb) + round_up(c.shape[0], cb) if euclid else 0
-    scratch = torch.empty((lists + norms,), dtype=torch.float32,
-                          device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.sct_knn_select(
-            qp.data_ptr(), cp.data_ptr(), nq, c.shape[0], d, k, int(euclid),
-            int(exclude_self), out_v.data_ptr(), out_i.data_ptr(),
-            scratch.data_ptr(), stream)
+        code = launch()
         knn_select.launches += 1
     cuda_build.check(code, "knn_select launch")
     return out_v, out_i
@@ -99,7 +84,19 @@ def knn_select(q: torch.Tensor, c: torch.Tensor, *, k: int,
 
 knn_select.launches = 0  # kernel launches, for checks that a run used it
 
-_LAYOUT: dict | None = None
+_LAYOUT_KEYS = ("query_tile", "cand_tile", "splits", "ring", "rows_a_lane",
+                "cols_a_lane", "registers_k16", "local_bytes_k16",
+                "registers_k32", "local_bytes_k32")
+_LAYOUTS: dict = {}
+
+
+def _layout(entry: str) -> dict:
+    if entry not in _LAYOUTS:
+        out = (ctypes.c_int * len(_LAYOUT_KEYS))()
+        code = getattr(cuda_build.library(), entry)(ctypes.addressof(out))
+        cuda_build.check(code, entry)
+        _LAYOUTS[entry] = dict(zip(_LAYOUT_KEYS, out))
+    return _LAYOUTS[entry]
 
 
 def knn_select_layout() -> dict:
@@ -109,17 +106,50 @@ def knn_select_layout() -> dict:
     candidate stages in flight at most (``ring``), score rows and columns
     a lane, and the registers and local-memory bytes a thread of the
     K = 16 and K = 32 builds."""
-    global _LAYOUT
-    if _LAYOUT is None:
-        out = (ctypes.c_int * 10)()
-        code = cuda_build.library().sct_knn_select_layout(
-            ctypes.addressof(out))
-        cuda_build.check(code, "knn_select layout")
-        _LAYOUT = dict(zip(
-            ("query_tile", "cand_tile", "splits", "ring", "rows_a_lane",
-             "cols_a_lane", "registers_k16", "local_bytes_k16",
-             "registers_k32", "local_bytes_k32"), out))
-    return _LAYOUT
+    return _layout("sct_knn_select_layout")
+
+
+def knn_binned_layout() -> dict:
+    """The binned kernel's sizes (``csrc/knn_binned.cu``), under the keys
+    of ``knn_select_layout``; ``splits`` is the most bin-chunk splits
+    (a launch takes ``min(splits, n_bins / cand_tile)``)."""
+    return _layout("sct_knn_binned_layout")
+
+
+def _packed_launch(entry: str, layout: dict, q: torch.Tensor,
+                   c: torch.Tensor, k: int, metric: str, exclude_self: bool,
+                   *extra: int):
+    """The outputs of a kernel launch on packed operands and the launch
+    itself, ``(out_v, out_i, launch)``: ``launch()`` calls the C entry
+    ``entry`` (q, c, nq, nc, d, k, *extra, euclid, exclude_self, out_v,
+    out_i, scratch, stream) on the current stream and returns its error
+    code; it is None when there is no query.  Packing (``pack_tiles`` at
+    the layout's tiles) and the scratch (the split lists, then the
+    euclidean norms) are made here."""
+    nq, d = q.shape
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
+    if nq == 0:
+        return out_v, out_i, None
+    lib = cuda_build.library()
+    qb, cb, splits = (layout["query_tile"], layout["cand_tile"],
+                      layout["splits"])
+    qp = pack_tiles(q, qb)
+    cp = qp if c is q and qb == cb else pack_tiles(c, cb)
+    euclid = metric == "euclidean"
+    lists = 2 * splits * nq * k if splits > 1 else 0
+    norms = round_up(nq, qb) + round_up(c.shape[0], cb) if euclid else 0
+    scratch = torch.empty((lists + norms,), dtype=torch.float32,
+                          device=q.device)
+
+    def launch() -> int:
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        return getattr(lib, entry)(
+            qp.data_ptr(), cp.data_ptr(), nq, c.shape[0], d, k, *extra,
+            int(euclid), int(exclude_self), out_v.data_ptr(),
+            out_i.data_ptr(), scratch.data_ptr(), stream)
+
+    return out_v, out_i, launch
 
 
 def pack_tiles(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -256,28 +286,26 @@ def knn_binned(q: torch.Tensor, c: torch.Tensor, *, k: int, n_bins: int,
     ``n_bins`` must be ≥ k and is rounded up to a multiple of 128.
     Returns ``(values (nq, k) float32, ids (nq, k) int32)``.  CPU
     tensors go to ``knn_binned_plain``; CUDA tensors to the kernel
-    ``csrc/knn_binned.cu``."""
+    ``csrc/knn_binned.cu``, which takes both operands packed by
+    ``pack_tiles`` and merges its bin-chunk splits in a second launch,
+    after a norms launch for euclidean (one count in
+    ``knn_binned.launches`` a call)."""
     _check(q, c, k, metric)
     n_bins = binned_bins(k, n_bins)
+    if c.shape[0] + n_bins >= 2 ** 31:
+        raise ValueError("nc + n_bins >= 2**31 (int32 bin keys)")
     if q.device.type == "cpu":
         return knn_binned_plain(q, c, k=k, n_bins=n_bins, metric=metric,
                                 exclude_self=exclude_self)
     if q.device.type != "cuda":
         raise ValueError(f"knn_binned runs on cpu or cuda, not {q.device}")
-    q = q.contiguous()
-    c = c.contiguous()
-    nq, d = q.shape
-    out_v = torch.empty((nq, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
-    if nq == 0:
+    out_v, out_i, launch = _packed_launch("sct_knn_binned",
+                                          knn_binned_layout(), q, c, k,
+                                          metric, exclude_self, n_bins)
+    if launch is None:
         return out_v, out_i
-    lib = cuda_build.library()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.sct_knn_binned(
-            q.data_ptr(), c.data_ptr(), nq, c.shape[0], d, k, n_bins,
-            int(q.dtype == torch.bfloat16), int(metric == "euclidean"),
-            int(exclude_self), out_v.data_ptr(), out_i.data_ptr(), stream)
+        code = launch()
         knn_binned.launches += 1
     cuda_build.check(code, "knn_binned launch")
     return out_v, out_i

@@ -257,6 +257,27 @@ def test_jaccard_counts_duplicates_as_the_reference_does():
     assert out[2, 1] == np.float32(0.25)
 
 
+@pytest.mark.parametrize("n,k", [(301, 1), (301, 16), (300, 17),
+                                 (129, 32)])
+def test_jaccard_at_each_kernel_width_matches_pallas_kernel(n, k):
+    """The widths where the kernel changes its layout: k = 1 and 16 (a
+    half-warp a row, odd n so that the last warp holds one row), 17 and
+    32 (a warp a row); lists with -1 padding, repeated ids and rows
+    without edges, against the reference's Pallas kernel bit for bit."""
+    rng = np.random.default_rng(k)
+    idx = rng.integers(0, n, (n, k)).astype(np.int32)
+    idx[rng.random((n, k)) < 0.1] = -1
+    if k > 1:
+        idx[::7, 1] = idx[::7, 0]  # duplicates inside a list
+        idx[::5, -1] = idx[::5, 0]
+    idx[::11, :] = -1  # rows without edges
+    with ref_configure(graph_impl="pallas"):
+        ref = np.asarray(PG.jaccard(jnp.asarray(idx), block=64))
+    out = GK.jaccard(torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert (out[idx < 0] == 0).all()
+
+
 # ----------------------------------------------------- t-SNE repulsion
 
 

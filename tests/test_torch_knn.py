@@ -411,3 +411,80 @@ def test_pack_tiles_is_tile_major_feature_major_zero_padded(dtype):
     assert torch.equal(knn_kernel.pack_tiles(x[:128], 64),
                        x[:128].float().reshape(2, 64, 7).permute(0, 2, 1))
     assert knn_kernel.pack_tiles(x[:0], 64).shape == (0, 7, 64)
+
+
+# --------------------------------------------------- bin-chunk splits
+
+
+def _exact_points(n, seed=11, d=8):
+    """Points with ±1 in four of ``d`` places (norm 2): every cosine and
+    euclidean score is exact in float32, whatever the product's
+    blocking, and equal scores tie exactly inside and across bins."""
+    rng = np.random.default_rng(seed)
+    base = np.zeros((40, d), np.float32)
+    for row in base:
+        row[rng.choice(d, 4, replace=False)] = rng.choice([-1, 1], 4)
+    return base[rng.integers(0, 40, size=n)]
+
+
+def _split_binned(q, c, k, n_bins, metric, exclude_self, chunk_bounds):
+    """The binned kernel's bin-chunk splits and merge launch, in their
+    plain versions: split s holds the bins of the 128-bin chunks
+    [chunk_bounds[s], chunk_bounds[s + 1]), each whole, and keeps the top
+    ``k`` of their survivors by (value descending, bin ascending); the
+    (S, nq, k) lists then go through ``knn_merge_plain``."""
+    sv, si = knn_kernel.bin_survivors(q, c, n_bins=n_bins, metric=metric,
+                                      exclude_self=exclude_self)
+    tile = knn_kernel.BINS_MULTIPLE
+    vals, ids = [], []
+    for a, b in zip(chunk_bounds[:-1], chunk_bounds[1:]):
+        v, sel = torch.sort(sv[:, a * tile:b * tile], dim=1,
+                            descending=True, stable=True)
+        i = torch.gather(si[:, a * tile:b * tile], 1, sel)
+        pad = max(0, k - v.shape[1])
+        v = torch.nn.functional.pad(v[:, :k], (0, pad), value=float("-inf"))
+        i = torch.nn.functional.pad(i[:, :k], (0, pad), value=-1)
+        vals.append(v)
+        ids.append(torch.where(torch.isfinite(v), i, -1).to(torch.int32))
+    return knn_kernel.knn_merge_plain(torch.stack(vals), torch.stack(ids))
+
+
+@pytest.mark.parametrize("nc,n_bins,chunk_bounds", [
+    (200, 128, (0, 1)),            # one chunk, one split; nc % n_bins != 0
+    (700, 256, (0, 1, 2)),         # every chunk of 3 rounds
+    (1000, 300, (0, 1, 3)),        # 300 -> 384 bins; unequal ranges, the
+    (1000, 300, (0, 2, 3)),        # last chunk one round short
+    (200, 384, (0, 1, 2)),         # fewer candidates than bins
+    (777, 128, (0, 1)),            # seven rounds, the last a partial tile
+], ids=["128-one-chunk", "256-two-splits", "300-short-last",
+        "300-long-first", "nc-below-bins", "128-seven-rounds"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_binned_chunk_splits_match_unsplit_and_pallas_kernel(
+        metric, exclude_self, nc, n_bins, chunk_bounds):
+    """The binned kernel's splits over whole bin chunks, merged, equal
+    ``knn_binned_plain`` (ids identical, scores bitwise) and the
+    reference's binned Pallas kernel in interpret mode (ids identical on
+    exact points with ties inside and across bins, scores within
+    1e-5)."""
+    pts = _exact_points(nc)
+    q = port_knn._prep(torch.from_numpy(pts), metric, torch.float32)
+    k = 12
+    bins = knn_kernel.binned_bins(k, n_bins)
+    assert chunk_bounds[-1] == -(-min(nc, bins) // knn_kernel.BINS_MULTIPLE)
+    v, i = _split_binned(q, q, k, bins, metric, exclude_self, chunk_bounds)
+    uv, ui = knn_kernel.knn_binned_plain(q, q, k=k, n_bins=n_bins,
+                                         metric=metric,
+                                         exclude_self=exclude_self)
+    assert torch.equal(i, ui) and torch.equal(v, uv)
+    r_idx, r_dist = _ref_binned(pts, k=k, metric=metric, n_bins=n_bins,
+                                exclude_self=exclude_self)
+    np.testing.assert_array_equal(i.numpy(), r_idx)
+    dist = (1.0 - v) if metric == "cosine" else torch.sqrt(
+        torch.clamp(-v, min=0.0))
+    np.testing.assert_allclose(_score(dist.numpy(), metric),
+                               _score(r_dist, metric), atol=1e-5, rtol=0)
+    if nc <= bins:  # every candidate owns its bin: the exact merge
+        ev, ei = knn_kernel.knn_select_plain(q, q, k=k, metric=metric,
+                                             exclude_self=exclude_self)
+        assert torch.equal(i, ei) and torch.equal(v, ev)
