@@ -124,7 +124,8 @@ PEAKS = {
                   "int32": 114 * 64 * 1.755e9},
 }
 # int32: 64 INT32 lanes an SM a clock (the Hopper architecture white
-# paper; half the FP32 lanes) at the boost clock the f32 peak assumes.
+# paper; half the FP32 lanes) at the boost clock the f32 peak assumes:
+# the rate of integer compares (ISETP), which only those lanes run.
 
 
 class SmokeFailure(RuntimeError):
@@ -171,6 +172,70 @@ def cuda_ms(fn, reps: int = 5, warmup: bool = True) -> float:
     return statistics.median(cuda_times(fn, reps, warmup))
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def host_us(fn, calls: int = 200) -> list:
+    """Microseconds per call of ``fn``: host time to enqueue ``calls``
+    calls, then until the card has run them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return [(t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6]
+
+
+def device_us(fns: dict, calls: int = 20) -> dict:
+    """Device time per call (µs) of each kernel that ``fns`` launch, by
+    torch.profiler: {label: {kernel name: µs}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+            if t > 0:
+                times[ev.key[:60]] = t / calls
+        out[label] = times
+    return out
+
+
+def load_package(root, name: str):
+    """The package ``sctools_tpu_torch`` of the checkout at ``root`` (a
+    ``git archive`` of another commit), imported as the package ``name``
+    beside this one."""
+    import importlib.util
+    from pathlib import Path
+
+    init = Path(root).resolve() / "sctools_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        name, init, submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def peaks_for(name: str) -> tuple[str, dict]:
     key = "H100 PCIe" if "PCIe" in name else "H100 SXM"
     return key, PEAKS[key]
@@ -186,11 +251,7 @@ def card_phase() -> str:
 
     from sctools_tpu_torch import cuda_build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    line = smi.stdout.strip().splitlines()[0]
+    line = smi_line()
     print(line, flush=True)
     t0 = time.perf_counter()
     lib = cuda_build.build(verbose=True)
@@ -1017,7 +1078,8 @@ def binned_split_cases(qb: int, cb: int, splits: int) -> list:
     round; one chunk fewer, as many and one more than splits, with nc
     one off a round's end (the chunks before it take one round more than
     those after); that boundary one chunk past a split boundary; fewer
-    candidates than bins over several chunks; query counts one off the
+    candidates than bins over several chunks; several chunks a split,
+    with and without more candidates than bins; query counts one off the
     query tile.  The tie cases take "exact" points (``tie_points``)."""
     import torch
 
@@ -1039,6 +1101,14 @@ def binned_split_cases(qb: int, cb: int, splits: int) -> list:
          2 * splits * cb, "euclidean", bf16, True, False),
         (2 * qb + 1, splits * cb + 1, 50, 15, 4 * splits * cb, "cosine",
          f32, True, "exact"),
+        # several chunks a split: the row buffers and thresholds carry
+        # over chunk ends, the lists stored between them
+        (qb + 1, 7 * splits * cb + 5, 16, 40, 6 * splits * cb, "cosine",
+         f32, True, False),
+        (2 * qb - 1, 5 * splits * cb - 3, 8, 15, 4 * splits * cb,
+         "euclidean", f32, False, "exact"),
+        (qb - 1, 3 * splits * cb + 1, 50, 16, 4 * splits * cb, "cosine",
+         bf16, False, "exact"),
     ]
 
 
@@ -1247,8 +1317,11 @@ BOUND_RULES = {
                      "peak['bytes']); one compare and one add per pair of "
                      "list entries of each valid edge e (the data sheet "
                      "lists no int32 rate; the f32 CUDA-core rate stands "
-                     "in); bound_ms_int32 reads the same operations at "
-                     "peak['int32'], 64 INT32 lanes an SM a clock",
+                     "in); bound_ms_int32 = max(e*k*k / peak['int32'], "
+                     "2*n*k*4 / peak['bytes']): the compares alone, on the "
+                     "64 INT32 lanes an SM a clock; the adds run on the "
+                     "FP32 lanes (IMAD, IADD), whose 128 lanes an SM take "
+                     "the compares and adds together in no more time",
     "tsne_repulsion": "max((5*dim + 3)*n*(n - 1) / peak['float32'], "
                       "(2*n*dim + n)*4 / peak['bytes']); per pair: dim "
                       "subs, dim fmas (1 + d2), the reciprocal (w), w*w, "
@@ -1265,14 +1338,6 @@ def bounds_phase() -> dict:
           "rules": {name: "bound_ms = " + rule
                     for name, rule in BOUND_RULES.items()}})
     return peaks
-
-
-def device_us(fn, calls: int = 20) -> dict:
-    """Device µs a call of each kernel ``fn`` launches, by torch.profiler
-    over ``calls`` calls: {kernel name: µs}."""
-    import graph_kernel_sweep
-
-    return graph_kernel_sweep.device_us({"fn": fn}, calls)["fn"]
 
 
 def bound(ops: float, nbytes: float, peaks: dict, dtype="float32"):
@@ -1446,10 +1511,15 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
     ms = cuda_ms(lambda: GK.jaccard(r_idx), warmup=False)
     ms_nat = cuda_ms(lambda: GK.jaccard(idx))
     plain_ms = cuda_ms(lambda: GK.jaccard_plain(r_idx))
-    device = device_us(lambda: GK.jaccard(r_idx))
+    device = device_us({"fn": lambda: GK.jaccard(r_idx)})["fn"]
     bms, by = bound(2.0 * edges * k * k, 2.0 * n * k * 4, peaks)
-    int_ms, int_by = bound(2.0 * edges * k * k, 2.0 * n * k * 4, peaks,
+    int_ms, int_by = bound(1.0 * edges * k * k, 2.0 * n * k * 4, peaks,
                            "int32")
+    kernel_us = sum(t for name, t in device.items() if "jaccard" in name)
+    check(kernel_us >= 1e3 * max(bms, int_ms),
+          f"graph_jaccard: {kernel_us} µs of device time beats its bounds "
+          f"{bms} / {int_ms} ms: a bound rule counts work the kernel does "
+          "not need")
     rows.append({
         "name": "graph_jaccard",
         "source": "sctools_tpu_torch/csrc/graph_jaccard.cu",

@@ -35,8 +35,9 @@ import json
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
+
+import chip_smoke as smoke
 
 N, K = 68_579, 15
 TILES = (32, 64, 128)
@@ -121,46 +122,6 @@ def guard(dev) -> None:
         pass
 
 
-def host_us(fn, calls: int = 200) -> list:
-    """Microseconds per call of ``fn``: host time to enqueue ``calls``
-    calls, then until the card has run them."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    return [(t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6]
-
-
-def device_us(fns: dict, calls: int = 20) -> dict:
-    """Device time per call (µs) of each kernel that ``fns`` launch, by
-    torch.profiler: {label: {kernel name: µs}}."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
-    for label, fn in fns.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        times = {}
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total",
-                        getattr(ev, "cuda_time_total", 0.0))
-            if t > 0:
-                times[ev.key[:60]] = t / calls
-        out[label] = times
-    return out
-
-
 def graphs(dev) -> dict:
     """The random 68,579 × 15 graph of the sweep (seed 0; every 13th row
     pads slot 3) and one whose rows repeat no id: row r lists (7 r + p)
@@ -184,11 +145,10 @@ def ab(parent_root: str) -> int:
 
     import torch
 
-    import knn_kernel_sweep as kks
     from sctools_tpu_torch.ops import graph_kernels as GK
 
-    print(kks.smi_line(), flush=True)
-    kks.load_knn_kernel(Path(parent_root).resolve(), "sct_parent")
+    print(smoke.smi_line(), flush=True)
+    smoke.load_package(parent_root, "sct_parent")
     parent = importlib.import_module("sct_parent.ops.graph_kernels")
     for name, idx in graphs(torch.device("cuda")).items():
         a, b = parent.jaccard(idx), GK.jaccard(idx)
@@ -201,10 +161,11 @@ def ab(parent_root: str) -> int:
         print(json.dumps({
             "kernel": "graph_jaccard", "graph": name, "n": N, "k": K,
             "bitwise_equal": True, "event_ms_in_turns": turns,
-            "device_us": device_us({w: (lambda f=f: f(idx))
+            "device_us": smoke.device_us({w: (lambda f=f: f(idx))
                                     for w, f in runs.items()}),
             "host_us_enqueue_then_done": {
-                w: host_us(lambda f=f: f(idx)) for w, f in runs.items()}}),
+                w: smoke.host_us(lambda f=f: f(idx))
+                for w, f in runs.items()}}),
             flush=True)
     return 0
 
@@ -220,10 +181,7 @@ def main() -> int:
     from sctools_tpu_torch.config import true_f32
     from sctools_tpu_torch.ops import graph_kernels as GK
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smoke.smi_line(), flush=True)
     lib = build_probe()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -281,18 +239,18 @@ def main() -> int:
                     with true_f32():
                         torch.sparse.mm(csr[name], x)
                 res["host_us_enqueue_then_done"] = {
-                    "shipped": host_us(lambda: shipped(x)),
-                    "raw": host_us(lambda: raw(x, y, 64, 24 << 20)),
-                    "library": host_us(lib_call)}
-                res["device_us"] = device_us(
+                    "shipped": smoke.host_us(lambda: shipped(x)),
+                    "raw": smoke.host_us(lambda: raw(x, y, 64, 24 << 20)),
+                    "library": smoke.host_us(lib_call)}
+                res["device_us"] = smoke.device_us(
                     {"shipped": lambda: shipped(x), "library": lib_call})
             print(json.dumps(res), flush=True)
     jaccard = lambda: GK.jaccard(idx)  # noqa: E731
     print(json.dumps({
         "kernel": "graph_jaccard", "n": N, "k": K,
         "event_ms": cuda_ms(jaccard),
-        "host_us_enqueue_then_done": host_us(jaccard),
-        "device_us": device_us({"shipped": jaccard})["shipped"]}),
+        "host_us_enqueue_then_done": smoke.host_us(jaccard),
+        "device_us": smoke.device_us({"shipped": jaccard})["shipped"]}),
         flush=True)
     pieces = {
         "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
@@ -301,7 +259,7 @@ def main() -> int:
         "to_contiguous": lambda: w.to(torch.float32).contiguous(),
     }
     print(json.dumps({"wrapper_pieces_host_us": {
-        k: host_us(f, 2000)[0] for k, f in pieces.items()}}), flush=True)
+        k: smoke.host_us(f, 2000)[0] for k, f in pieces.items()}}), flush=True)
     return 0
 
 

@@ -42,16 +42,16 @@ checkout of another commit (``git archive`` of it, unpacked at
 PARENT_ROOT) in one process on one card: the main path's 50-PC
 embedding (QC → HVG → PCA of the 68,579 × 32,738 synthetic counts, as
 ``chip_smoke.py`` runs it), then both widths of configs[3] (f32 k = 15
-and bf16 k = 32) for ``knn_select``, and the embedding and the f32
-width with 1024 bins for ``knn_binned``, in turns parent, this tree,
-this tree, parent.  The two trees' kernels must give equal bits.
+and bf16 k = 32) for ``knn_select``, and ``knn_binned`` on the embedding
+at AB_BINS_MAIN bins and on the f32 width at AB_BINS_WIDE, in turns
+parent, this tree, this tree, parent.  The two trees' kernels must give
+equal bits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import importlib
-import importlib.util
 import json
 import re
 import subprocess
@@ -75,6 +75,11 @@ BINNED_VARIANTS = ((8, 8, 8, 64, 3, 1, 8), (8, 8, 8, 64, 3, 1, 2),
                    (8, 8, 4, 64, 3, 1, 8), (8, 8, 8, 64, 2, 1, 8),
                    (4, 8, 4, 64, 2, 2, 8), (4, 8, 4, 64, 2, 2, 16))
 N_BINS = 1024
+# The A/B's bin counts: config.knn_bins's default, larger settings (more
+# bin chunks a split), and every candidate its own bin (68,579 rounded up
+# to the 128-bin chunk).
+AB_BINS_MAIN = (1024, 2048, 4096, 8192, 16384, 32768, 68608)
+AB_BINS_WIDE = (1024, 16384)
 REPS = 5
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -87,13 +92,6 @@ KERNELS = {
     "binned": ("knn_binned_kernel", "knn_binned.cu", "sct_knn_binned",
                BINNED_ARGS, "sct_knn_binned_layout"),
 }
-
-
-def smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def ptxas_regs(log: str, kernel: str = "knn_select_kernel") -> dict:
@@ -206,12 +204,11 @@ def sweep(which: str = "select") -> int:
     import torch
 
     import chip_smoke as smoke
-    import graph_kernel_sweep as gks
     import tsne_kernel_sweep as tks
     from sctools_tpu_torch import cuda_build
     from sctools_tpu_torch.ops import knn_kernel as KK
 
-    print(smi_line(), flush=True)
+    print(smoke.smi_line(), flush=True)
     cmain = blobs(MAIN_N, 10)
     cwide = blobs(WIDE_C, 50)
     qwide = cwide[:WIDE_Q]
@@ -233,7 +230,7 @@ def sweep(which: str = "select") -> int:
         print(json.dumps({
             "kernel": f"knn_{which} (shipped wrapper)", "shape": s,
             "event_ms": smoke.cuda_times(call, REPS),
-            "device_us": gks.device_us({"shipped": call}, calls=5)[
+            "device_us": smoke.device_us({"shipped": call}, calls=5)[
                 "shipped"],
             "sm_clock_power_under_load": tks.clocks_under_load(call)
             if s == "main" else None}), flush=True)
@@ -286,18 +283,6 @@ def sweep(which: str = "select") -> int:
     return 0
 
 
-def load_knn_kernel(root: Path, name: str):
-    """The ``ops.knn_kernel`` module of the package ``sctools_tpu_torch``
-    under ``root``, imported as the package ``name``."""
-    init = root / "sctools_tpu_torch" / "__init__.py"
-    spec = importlib.util.spec_from_file_location(
-        name, init, submodule_search_locations=[str(init.parent)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module(f"{name}.ops.knn_kernel")
-
-
 def main_embedding():
     """The main path's 50-PC embedding, cosine-prepared: the 68,579 ×
     32,738 synthetic counts through ``chip_smoke.MAIN_STEPS`` up to
@@ -323,8 +308,9 @@ def ab(parent_root: str) -> int:
     from sctools_tpu_torch.ops import knn_kernel as KK
     from sctools_tpu_torch.ops.knn import _prep
 
-    print(smi_line(), flush=True)
-    parent = load_knn_kernel(Path(parent_root).resolve(), "sct_parent")
+    print(smoke.smi_line(), flush=True)
+    smoke.load_package(parent_root, "sct_parent")
+    parent = importlib.import_module("sct_parent.ops.knn_kernel")
     x = main_embedding()
     cwide = blobs(WIDE_C, 50)
     main = "68579x68579x50 k=15 float32 (main path)"
@@ -334,11 +320,13 @@ def ab(parent_root: str) -> int:
         cases.append(("knn_select",
                       f"{WIDE_Q}x{WIDE_C}x{DIM} k={k} {str(dtype)[6:]}",
                       c[:WIDE_Q], c, k, {}))
-    bins = {"n_bins": N_BINS}
-    cases.append(("knn_binned", main + f", {N_BINS} bins", x, x, 15, bins))
-    cases.append(("knn_binned",
-                  f"{WIDE_Q}x{WIDE_C}x{DIM} k=15 float32, {N_BINS} bins",
-                  cwide[:WIDE_Q], cwide, 15, bins))
+    for n_bins in AB_BINS_MAIN:
+        cases.append(("knn_binned", main + f", {n_bins} bins", x, x, 15,
+                      {"n_bins": n_bins}))
+    for n_bins in AB_BINS_WIDE:
+        cases.append(("knn_binned",
+                      f"{WIDE_Q}x{WIDE_C}x{DIM} k=15 float32, {n_bins} bins",
+                      cwide[:WIDE_Q], cwide, 15, {"n_bins": n_bins}))
     for name, shape, q, c, k, kw in cases:
         runs = {"parent": getattr(parent, name), "this": getattr(KK, name)}
         a = runs["parent"](q, c, k=k, **kw)

@@ -37,10 +37,11 @@
 // bit.
 //
 // Bound on an H100: bytes against operations.  idx read once and out
-// written once is n*k*8 bytes; the compares are e*k^2 integer compares
-// and adds (e valid edges), which at Hopper's INT32 rate (64 lanes an SM
-// a clock, half the FP32 rate) outweigh the bytes at k = 15.  The adds
-// compile to IMAD/VIADD on the FP32 lanes, though, and what holds the
+// written once is n*k*8 bytes; the work is e*k^2 integer compares and as
+// many adds (e valid edges).  The compares (ISETP) run only on Hopper's
+// INT32 lanes, 64 an SM a clock; the adds compile to IMAD/VIADD on the
+// FP32 lanes.  So the least time is e*k^2 compares at the INT32 rate,
+// which outweighs the bytes at k = 15.  What holds the
 // kernel is the latency of its two dependent loads (the row's ids, then
 // j's list, re-read from L2: e*k*4 bytes): fewer compares and coalesced
 // loads through shared memory both left its time as it was (PERF.md).

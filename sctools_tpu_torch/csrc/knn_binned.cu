@@ -49,7 +49,19 @@
 //     id itself when n_bins >= nc (R = 1).  Between chunks a warp's lists
 //     wait in the split's slice of the output, in device memory, read
 //     back by the lanes that wrote them, so that they hold no registers
-//     during the sweep; the last chunk writes the ids.
+//     during the sweep; the last chunk writes the ids.  Each row's
+//     threshold and buffer count stay in shared memory (RowState), so
+//     that a chunk's survivors are tested and appended to the row
+//     buffers as in knn_select.cu.  A row pair's lists make the round
+//     trip (pair_trip: load, merge, store) only when a buffer would
+//     overflow, and at the split's last chunk; a round trip merges the
+//     buffers whole, so the thresholds kept are the lists' own.  (Merging
+//     and storing every list at every chunk end made n_bins of 16384 and
+//     more slower than the earlier kernel; PERF.md.)
+//   * The chunk end takes a warp's 8 row pairs in a rolled loop, pair c's
+//     cells shifted into best[0] by register moves, so that its code
+//     stays small: unrolled, it was fetched anew at every chunk end and
+//     cost more than its merges (PERF.md).
 //   * Splits go over bin chunks, not candidate ranges: S = min(SPLITS,
 //     chunks) blocks a query tile, each over a contiguous range of
 //     chunks, so one block holds each bin whole (a bin split over two
@@ -95,6 +107,20 @@ namespace {
 // The rounds of the kept maxima: cell (i, e) of thread t at
 // [(i * TN + e) * THREADS + t].
 constexpr size_t ROUND_BYTES = sizeof(int) * TM * TN * THREADS;
+
+// A query row's selection between chunks: the threshold of its list as
+// stored (entry k - 1; -inf and NO_ID until the list holds k), and the
+// entries waiting in its row buffer, plus STORED once the list was
+// stored.  12 bytes a row, so that d = D_MAX still fits.
+constexpr int STORED = 1 << 8;
+struct RowState {
+  float tv;
+  int ti;
+  int n;
+};
+// The kernel's own shared memory, after the core's: the rounds, then a
+// RowState a query row.
+constexpr size_t EXTRA_BYTES = ROUND_BYTES + sizeof(RowState) * QB;
 
 // Fold a scored tile (its first column c0, round r) into the running
 // maxima, and clear the cells.  EDGE: the tile reaches past nc or holds
@@ -163,6 +189,109 @@ __device__ __forceinline__ void store_list(const List<SL>& l, float* v,
   }
 }
 
+// What a chunk end needs besides a row pair's cells: the split's lists
+// (row q's at lv + q * k and li + q * k) and the block's row states and
+// row buffers (block row r's at rs + r, bv + r * CAP, bi + r * CAP).
+struct Sink {
+  float* lv;
+  int* li;
+  RowState* rs;
+  float* bv;
+  int* bi;
+  int q0, nq, k, R, n_bins;
+};
+
+// A row pair's survivors of a chunk, the lane's TN cells: the kept
+// maxima `best` of the bins bin0 + 64 (e / 4) + e % 4, keyed bin * R +
+// round (the rounds at kept[e * THREADS]); masked (-inf, NO_ID) for a row
+// past nq.
+__device__ __forceinline__ Cells<true> survivors(const float (&best)[TN],
+                                                 const int* kept, int bin0,
+                                                 int R, bool row_ok) {
+  Cells<true> cl;
+#pragma unroll
+  for (int e = 0; e < TN; ++e) {
+    const float v = row_ok ? best[e] : -CUDART_INF_F;
+    cl.v[e] = v;
+    cl.key[e] = v > -CUDART_INF_F
+                    ? (bin0 + 64 * (e / 4) + e % 4) * R + kept[e * THREADS]
+                    : NO_ID;
+  }
+  return cl;
+}
+
+// The round trip of the row pair A, A + 4 (block rows; lanes 0-15 hold
+// row A's cells, 16-31 row B's) at a chunk end where its buffers would
+// overflow, or at the split's `last` chunk: load the lists (empty until
+// first stored), merge a buffer that would overflow, append the cells
+// that pass, merge the buffers whole, store the lists (at the last chunk
+// the ids) and their thresholds.  Out of line, like take_cells and
+// merge_row: one copy serves every pair.
+template <int SL>
+__device__ __noinline__ void pair_trip(Cells<true> cl, Sink s, int A,
+                                       bool last, int lane) {
+  __syncwarp();  // converged: the warp intrinsics below take their fast form
+  const int B = A + 4, qa = s.q0 + A, qb = s.q0 + B, k = s.k;
+  RowState* sa = s.rs + A;
+  RowState* sb = s.rs + B;
+  const int fa = sa->n, fb = sb->n;  // buffer counts | STORED
+  float *bva = s.bv + A * CAP, *bvb = s.bv + B * CAP;
+  int *bia = s.bi + A * CAP, *bib = s.bi + B * CAP;
+  float* va = s.lv + (int64_t)qa * k;
+  float* vb = s.lv + (int64_t)qb * k;
+  int* ia = s.li + (int64_t)qa * k;
+  int* ib = s.li + (int64_t)qb * k;
+  Pair<SL> p;
+  p.a = load_list<SL>(va, ia, k, lane, fa < STORED || qa >= s.nq);
+  p.b = load_list<SL>(vb, ib, k, lane, fb < STORED || qb >= s.nq);
+  p.na = fa % STORED, p.nb = fb % STORED;
+  if (p.na + p.nb > 0) {
+    // a buffer that would overflow is merged first, so that the cells
+    // meet the merged list's threshold and the appends fit
+    const Passing ps = passing(cl, 0, lane < 16 ? sa->tv : sb->tv,
+                               lane < 16 ? sa->ti : sb->ti);
+    if (p.na > 0 && p.na + ps.na > CAP)
+      p.a = merge_row<SL>(p.a, bva, bia, p.na, k, lane), p.na = 0;
+    if (p.nb > 0 && p.nb + ps.nb > CAP)
+      p.b = merge_row<SL>(p.b, bvb, bib, p.nb, k, lane), p.nb = 0;
+  }
+  if (k < 16 && (p.a.tv == -CUDART_INF_F || p.b.tv == -CUDART_INF_F)) {
+    // A list short of k entries passes every finite cell.  But the latest
+    // of the 16 lanes' best cells of a row comes after 15 of the row's
+    // cells, so none after it is in the row's top k: it serves as the
+    // threshold until the next merge (at a split's first chunk, about
+    // half the merges).
+    float lv = -CUDART_INF_F;
+    int lk = NO_ID;
+#pragma unroll
+    for (int e = 0; e < TN; ++e)
+      if (before(cl.v[e], cl.key[e], lv, lk)) lv = cl.v[e], lk = cl.key[e];
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) {
+      const float ov = __shfl_xor_sync(FULL, lv, o);
+      const int ok = __shfl_xor_sync(FULL, lk, o);
+      if (before(lv, lk, ov, ok)) lv = ov, lk = ok;
+    }
+    const float av = __shfl_sync(FULL, lv, 0), bv = __shfl_sync(FULL, lv, 16);
+    const int ak = __shfl_sync(FULL, lk, 0), bk = __shfl_sync(FULL, lk, 16);
+    if (before(av, ak, p.a.tv, p.a.ti)) p.a.tv = av, p.a.ti = ak;
+    if (before(bv, bk, p.b.tv, p.b.ti)) p.b.tv = bv, p.b.ti = bk;
+  }
+  p = take_cells<SL, true>(p, cl, 0, bva, bia, bvb, bib, k, lane);
+  // the buffers are merged whole: the thresholds stored are the lists'
+  // own, so that fewer of the next chunks' cells pass them
+  if (p.na > 0) p.a = merge_row<SL>(p.a, bva, bia, p.na, k, lane);
+  if (p.nb > 0) p.b = merge_row<SL>(p.b, bvb, bib, p.nb, k, lane);
+  if (qa < s.nq) store_list<SL>(p.a, va, ia, k, lane, last, s.R, s.n_bins);
+  if (qb < s.nq) store_list<SL>(p.b, vb, ib, k, lane, last, s.R, s.n_bins);
+  __syncwarp();  // every lane has read the states
+  if (lane == 0) {
+    *sa = RowState{p.a.tv, p.a.ti, STORED};
+    *sb = RowState{p.b.tv, p.b.ti, STORED};
+  }
+  __syncwarp();
+}
+
 template <int K>
 __global__ void __launch_bounds__(THREADS, KNN_MINB)
     knn_binned_kernel(const float* __restrict__ qP,
@@ -176,6 +305,7 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem m = carve(smem, d, kc, nring);
   int* kept = reinterpret_cast<int*>(m.end) + threadIdx.x;
+  RowState* rs = reinterpret_cast<RowState*>(m.end + ROUND_BYTES);
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * QB;
@@ -208,13 +338,14 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
               min(kc, d - k0) * CB * 4, m.full + b);
   };
   ring_start(m, qP + (int64_t)blockIdx.x * d * QB, d, nring, stages, issue);
+  if (tid < QB) rs[tid] = RowState{-CUDART_INF_F, NO_ID, 0};
   __syncthreads();
   const int g = lane >> 4;                     // which row of each pair
   const int r0 = warp * RW + 4 * g;            // rows r0 + 8h + i
   const int c0l = 4 * (lane & 15);             // columns c0l + 64h + j
-  float* wbv = m.buf_v + warp * RW * CAP;      // the warp's row buffers
-  int* wbi = m.buf_i + warp * RW * CAP;
   const int64_t slice = (int64_t)blockIdx.y * nq * k;
+  const Sink sink{out_v + slice, out_i + slice, rs, m.buf_v, m.buf_i,
+                  q0, nq, k, R, n_bins};
 
   float acc[TM][TN], best[TM][TN];
 #pragma unroll
@@ -246,61 +377,43 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
     if (++r < rounds) continue;
 
     // Chunk ch is done: its survivors, bins ch * CB + c0l + 64h + j, go
-    // to the lists of the warp's rows, pair by pair (rows A = 8h + i of
-    // lanes 0-15 and B = A + 4 of lanes 16-31, as in knn_select.cu).
-    const bool fresh = ch == ch0, last = ch + 1 == ch1;
-#pragma unroll
-    for (int hi = 0; hi < TM / 4; ++hi)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int A = 8 * hi + i, B = A + 4, c = hi * 4 + i;
-        const int qa = q0 + warp * RW + A, qb = q0 + warp * RW + B;
-        Pair<SL> p;
-        p.a = load_list<SL>(out_v + slice + (int64_t)qa * k,
-                            out_i + slice + (int64_t)qa * k, k, lane,
-                            fresh || qa >= nq);
-        p.b = load_list<SL>(out_v + slice + (int64_t)qb * k,
-                            out_i + slice + (int64_t)qb * k, k, lane,
-                            fresh || qb >= nq);
-        p.na = p.nb = 0;
-        const float tv = g ? p.b.tv : p.a.tv;
-        const int ti = g ? p.b.ti : p.a.ti;
-        const bool row_ok = (g ? qb : qa) < nq;
-        Cells<true> cl;
-        bool any = false;
-#pragma unroll
-        for (int e = 0; e < TN; ++e) {
-          const float v = row_ok ? best[c][e] : -CUDART_INF_F;
-          const int bin = ch * CB + c0l + 64 * (e / 4) + e % 4;
-          cl.v[e] = v;
-          cl.key[e] = v > -CUDART_INF_F
-                          ? bin * R + kept[(c * TN + e) * THREADS]
-                          : NO_ID;
-          any |= enters(v, cl.key[e], tv, ti);
-          best[c][e] = -CUDART_INF_F;
+    // to the row buffers of the warp's rows, pair by pair (pair c: rows A
+    // = 8 (c / 4) + c % 4 of lanes 0-15 and B = A + 4 of lanes 16-31, as
+    // in knn_select.cu), tested against the thresholds of the lists in
+    // memory; a pair whose buffers would overflow, and every pair at the
+    // split's last chunk, makes the round trip (pair_trip).  A rolled
+    // loop, so that the chunk end's code stays small: pair c's cells are
+    // best[0] at turn c, the rows moving down one a turn (register moves,
+    // where an index into best would put it in local memory), and -inf
+    // fills in from the top, ready for the next chunk.
+    const bool last = ch + 1 == ch1;
+#pragma unroll 1
+    for (int c = 0; c < TM; ++c) {
+      const int A = warp * RW + 8 * (c / 4) + c % 4;
+      const Cells<true> cl = survivors(best[0], kept + c * TN * THREADS,
+                                       ch * CB + c0l, R, q0 + A + 4 * g < nq);
+      bool trip = last;
+      if (!last) {
+        const int fa = rs[A].n, fb = rs[A + 4].n;  // buffer counts | STORED
+        const Passing ps =
+            passing(cl, 0, rs[A + 4 * g].tv, rs[A + 4 * g].ti);
+        trip = fa % STORED + ps.na > CAP || fb % STORED + ps.nb > CAP;
+        if (!trip && ps.na + ps.nb > 0) {  // the buffers take the cells
+          append_cells(cl, 0, ps, fa % STORED, fb % STORED,
+                       m.buf_v + A * CAP, m.buf_i + A * CAP,
+                       m.buf_v + (A + 4) * CAP, m.buf_i + (A + 4) * CAP,
+                       lane);
+          if (lane == 0) rs[A].n = fa + ps.na, rs[A + 4].n = fb + ps.nb;
         }
-        if (__any_sync(FULL, any)) {
-          __syncwarp();
-          p = take_cells<SL, true>(p, cl, 0, wbv + A * CAP, wbi + A * CAP,
-                                   wbv + B * CAP, wbi + B * CAP, k, lane);
-          if (p.na > 0)
-            p.a = merge_row<SL>(p.a, wbv + A * CAP, wbi + A * CAP, p.na, k,
-                                lane);
-          if (p.nb > 0)
-            p.b = merge_row<SL>(p.b, wbv + B * CAP, wbi + B * CAP, p.nb, k,
-                                lane);
-        } else if (!fresh && !last) {
-          continue;  // the lists in memory stand
-        }
-        if (qa < nq)
-          store_list<SL>(p.a, out_v + slice + (int64_t)qa * k,
-                         out_i + slice + (int64_t)qa * k, k, lane, last, R,
-                         n_bins);
-        if (qb < nq)
-          store_list<SL>(p.b, out_v + slice + (int64_t)qb * k,
-                         out_i + slice + (int64_t)qb * k, k, lane, last, R,
-                         n_bins);
       }
+      if (trip) pair_trip<SL>(cl, sink, A, last, lane);
+#pragma unroll
+      for (int h = 0; h + 1 < TM; ++h)
+#pragma unroll
+        for (int e = 0; e < TN; ++e) best[h][e] = best[h + 1][e];
+#pragma unroll
+      for (int e = 0; e < TN; ++e) best[TM - 1][e] = -CUDART_INF_F;
+    }
     r = 0;
     ++ch;
     rounds = ch - ch0 < nfull ? R : R - 1;
@@ -324,12 +437,12 @@ cudaError_t launch(const float* qP, const float* cP, int nq, int nc, int d,
                    float* out_v, int* out_i, float* scratch,
                    cudaStream_t stream) {
   int kc, nring;
-  stage_shape(d, ROUND_BYTES, &kc, &nring);
-  const size_t smem = smem_bytes(d, kc, nring, ROUND_BYTES);
+  stage_shape(d, EXTRA_BYTES, &kc, &nring);
+  const size_t smem = smem_bytes(d, kc, nring, EXTRA_BYTES);
   auto kern = knn_binned_kernel<K>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)  // two blocks an SM need the largest carveout
+  if (e == cudaSuccess)  // about 200 KB a block at d = 50
     e = cudaFuncSetAttribute(kern,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);

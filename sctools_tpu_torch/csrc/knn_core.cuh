@@ -336,6 +336,53 @@ struct Pair {
   int na, nb;
 };
 
+// Which of a row pair's cells may enter, against the threshold (tv, ti)
+// of the lane's row: a ballot a cell (row A in the low 16 bits, row B in
+// the high), and how many pass in each row.
+struct Passing {
+  unsigned m[TN];
+  int na, nb;
+};
+template <bool KEYED>
+__device__ __forceinline__ Passing passing(const Cells<KEYED>& c, int col0,
+                                           float tv, int ti) {
+  Passing ps;
+  ps.na = ps.nb = 0;
+#pragma unroll
+  for (int e = 0; e < TN; ++e) {
+    ps.m[e] = __ballot_sync(FULL, enters(c.v[e], cell_key(c, col0, e), tv,
+                                         ti));
+    ps.na += __popc(ps.m[e] & 0xffffu);
+    ps.nb += __popc(ps.m[e] >> 16);
+  }
+  return ps;
+}
+
+// Write the passing cells to the rows' buffers, after the at (row A) or
+// bt (row B) entries they hold; the caller has checked that they fit.
+template <bool KEYED>
+__device__ __forceinline__ void append_cells(const Cells<KEYED>& c, int col0,
+                                             const Passing& ps, int at,
+                                             int bt, float* bva, int* bia,
+                                             float* bvb, int* bib,
+                                             int lane) {
+  const int g = lane >> 4;
+  const unsigned below = (1u << (lane & 15)) - 1u;
+  int pos0 = g ? bt : at;
+  float* bv = g ? bvb : bva;
+  int* bi = g ? bib : bia;
+#pragma unroll
+  for (int e = 0; e < TN; ++e) {
+    const unsigned h = g ? ps.m[e] >> 16 : ps.m[e] & 0xffffu;
+    if ((h >> (lane & 15)) & 1u) {
+      const int pos = pos0 + __popc(h & below);
+      bv[pos] = c.v[e];
+      bi[pos] = cell_key(c, col0, e);
+    }
+    pos0 += __popc(h);
+  }
+}
+
 // Append a row pair's cells that may enter to the rows' buffers: all at
 // once when they fit, else two cells a lane at a time (at most 32 a row),
 // merging a buffer first when they would not fit.  Out of line, like
@@ -349,33 +396,12 @@ __device__ __noinline__ Pair<SL> take_cells(Pair<SL> p, Cells<KEYED> c,
   const int g = lane >> 4;
   const unsigned below = (1u << (lane & 15)) - 1u;
   {
-    const float tv = g ? p.b.tv : p.a.tv;
-    const int ti = g ? p.b.ti : p.a.ti;
-    unsigned m[TN];
-    int na = 0, nb = 0;  // the cells that pass, of rows A and B
-#pragma unroll
-    for (int e = 0; e < TN; ++e) {
-      m[e] = __ballot_sync(FULL, enters(c.v[e], cell_key(c, col0, e), tv,
-                                        ti));
-      na += __popc(m[e] & 0xffffu);
-      nb += __popc(m[e] >> 16);
-    }
-    if (p.na + na <= CAP && p.nb + nb <= CAP) {
-      int at = g ? p.nb : p.na;
-      float* bv = g ? bvb : bva;
-      int* bi = g ? bib : bia;
-#pragma unroll
-      for (int e = 0; e < TN; ++e) {
-        const unsigned h = g ? m[e] >> 16 : m[e] & 0xffffu;
-        if ((h >> (lane & 15)) & 1u) {
-          const int pos = at + __popc(h & below);
-          bv[pos] = c.v[e];
-          bi[pos] = cell_key(c, col0, e);
-        }
-        at += __popc(h);
-      }
-      p.na += na;
-      p.nb += nb;
+    const Passing ps =
+        passing(c, col0, g ? p.b.tv : p.a.tv, g ? p.b.ti : p.a.ti);
+    if (p.na + ps.na <= CAP && p.nb + ps.nb <= CAP) {
+      append_cells(c, col0, ps, p.na, p.nb, bva, bia, bvb, bib, lane);
+      p.na += ps.na;
+      p.nb += ps.nb;
       return p;
     }
   }

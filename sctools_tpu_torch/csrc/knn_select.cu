@@ -69,9 +69,9 @@
 //     id.  No atomics: the result repeats bit for bit.
 // The ring, the register tile, the lists, the merges and the norms are
 // the core this kernel shares with knn_binned.cu (knn_core.cuh).  Every
-// score is the fmaf chain of the earlier 4x4 core, and the
-// selection is exact under (value, id), so with n_bins >= nc knn_binned
-// gives this kernel's bits.
+// score is one fmaf chain over kk from 0.f, and the selection is exact
+// under (value, id), so with n_bins >= nc knn_binned gives this kernel's
+// bits.
 //
 // TM, TN, SPLITS, KC, RING and MINB were chosen with knn_kernel_sweep.py
 // (PERF.md), which builds this file again with -D sizes.

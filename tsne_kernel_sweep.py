@@ -174,14 +174,10 @@ def main(argv: list) -> int:
         print("tsne_kernel_sweep: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as smoke
-    import graph_kernel_sweep as gks
     from sctools_tpu_torch import cuda_build
     from sctools_tpu_torch.ops import graph_kernels as GK
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smoke.smi_line(), flush=True)
     dev = torch.device("cuda")
     y = torch.from_numpy(layout()).to(dev)
     shipped = GK.tsne_repulsion_layout()
@@ -199,8 +195,8 @@ def main(argv: list) -> int:
     print(json.dumps({
         "kernel": "tsne_repulsion (shipped wrapper)", "n": N, "dim": DIM,
         "event_ms": smoke.cuda_times(call, REPS),
-        "device_us": gks.device_us({"shipped": call})["shipped"],
-        "host_us_enqueue_then_done": gks.host_us(call, 50),
+        "device_us": smoke.device_us({"shipped": call})["shipped"],
+        "host_us_enqueue_then_done": smoke.host_us(call, 50),
         "sm_clock_power_under_load": clocks_under_load(call)}), flush=True)
 
     t0 = time.perf_counter()
