@@ -15,7 +15,10 @@ Phases, each printing one JSON line, each fatal on a failed check:
              ``Pipeline.run`` on the card, with the kernel's launch count
              read around that run, each stage's wall time and peak
              device memory, and recall@10 ≥ 0.99 against the float64
-             oracle on 4,096 sampled cells;
+             oracle on 4,096 sampled cells; then ``hvg.select`` twice on
+             the card and once on the CPU over the path's log1p output:
+             each symmetric difference of the 2000-gene sets may hold
+             near-ties only (scores within 1e-5 relative of the 2000th);
 3. binned  — ``neighbors.knn`` (k=15) on the main path's output under
              ``knn_impl="pallas_binned"`` (1024 bins): knn_binned
              launched once and knn_select never, recall@10 ≥ 0.98;
@@ -46,7 +49,23 @@ Phases, each printing one JSON line, each fatal on a failed check:
              ``palantir.run(root=0)`` (rmatvec 100, one matvec per fate
              iteration): pseudotime in [0, 1], fate rows summing to 1,
              finite entropy, at least one terminal state;
-7. edges   — the kNN kernels against their plain versions at small
+7. stream  — BASELINE configs[2..3] at 1.3M cells × 28,672 genes on the
+             card (bench.py's atlas stand-in: ``DeviceSyntheticSource``,
+             capacity 512, 131,072-row shards, materialized):
+             ``stream_stats`` → ``stream_hvg`` (seurat_v3, 2000) →
+             ``stream_pca`` (50 PCs, n_iter 2) → ``iter_knn_chunks``
+             (k=15, 131,072 queries a chunk, refine 32).  Each stage's
+             wall and peak memory; knn_select launched once a chunk;
+             recall@10 ≥ 0.99 against the float64 oracle on 1,024
+             sampled cells; scores finite, explained variance
+             non-increasing, ids in range, distances sorted.  Then stats
+             and HVG twice more (near-ties only), and the shard store:
+             the first
+             131,072 cells through ``StoreWriter`` into a temporary
+             directory and back by ``ShardStore.source()`` with
+             prefetch (per-cell totals bitwise, gene moments within
+             rtol 1e-5; prefetch overlap and stall, read rate);
+8. edges   — the kNN kernels against their plain versions at small
              shapes that reach their corners (k = 1 to 256, d = 1 and
              256, euclidean, self exclusion, bf16, fewer candidates than
              k or than bins, n_bins 128 to 1024, exact ties; for
@@ -65,7 +84,7 @@ Phases, each printing one JSON line, each fatal on a failed check:
              and matvec and rmatvec at every width path (d = 1 to 914):
              a column slice of x gives that slice of the result bit for
              bit, and an x 4 bytes off alignment the same bits;
-8. kernels — each kernel against its plain version on the card at the
+9. kernels — each kernel against its plain version on the card at the
              path's shapes (kNN also at the configs[3] candidate width:
              1.3M points, 65,536 queries; f32 k=15, binned k=15 and
              bf16 k=32 then the f32 refine to 15, with recall against
@@ -82,9 +101,13 @@ Phases, each printing one JSON line, each fatal on a failed check:
              SEACells 914, spectral 21, Palantir's fates), graph_rmatvec
              at SEACells' 914 and Palantir's 1; each holds the column-
              slice identity there too.  graph_jaccard adds its
-             torch.profiler device µs and a bound at the INT32 rate;
+             torch.profiler device µs a recorded launch (taken in phase
+             graph, early in the process, and again here, where the
+             trace loses records) and a bound at the INT32 rate;
              tsne_repulsion gives the same bits in two calls at the
-             path's final layout.
+             path's final layout.  knn_select also at the stream path's
+             first chunk (131,072 × 1.3M × 50, k=32, f32, its own
+             embedding), with the stream path's launches.
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -94,6 +117,7 @@ the package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -196,9 +220,14 @@ def host_us(fn, calls: int = 200) -> list:
     return [(t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6]
 
 
-def device_us(fns: dict, calls: int = 20) -> dict:
-    """Device time per call (µs) of each kernel that ``fns`` launch, by
-    torch.profiler: {label: {kernel name: µs}}."""
+def device_us(fns: dict, calls: int = 20, counts: dict | None = None
+              ) -> dict:
+    """Device time per launch (µs) of each kernel that ``fns`` launch
+    over ``calls`` calls, by torch.profiler: {label: {kernel name:
+    µs}}.  Per launch the profiler recorded, not per call, so that a
+    trace that lost records still gives each launch's time.
+    ``counts``, when given, receives {label: {kernel name: launches
+    recorded}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -210,13 +239,16 @@ def device_us(fns: dict, calls: int = 20) -> dict:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        times = {}
+        times, seen = {}, {}
         for ev in prof.key_averages():
             t = getattr(ev, "device_time_total",
                         getattr(ev, "cuda_time_total", 0.0))
             if t > 0:
-                times[ev.key[:60]] = t / calls
+                times[ev.key[:60]] = t / max(ev.count, 1)
+                seen[ev.key[:60]] = ev.count
         out[label] = times
+        if counts is not None:
+            counts[label] = seen
     return out
 
 
@@ -331,10 +363,12 @@ def main_phase(card: str):
                           metric="cosine", chunk=1024)
     recall = recall_at_k(idx[sample], oracle, k=10)
     check(recall >= 0.99, f"main path recall@10 {recall} < 0.99")
+    hvg_sets = hvg_repeat(ds)
     emit({"phase": "main", "card": card, "cells": MAIN_CELLS,
           "genes": MAIN_GENES, "generate_s": gen_s, "run_s": run_s,
           "stages": stages, "knn_select_launches": launches,
-          "recall_at_10": recall, "recall_queries": N_RECALL})
+          "recall_at_10": recall, "recall_queries": N_RECALL,
+          "hvg_sets": hvg_sets})
     return {"raw": ds, "out": out, "x_pca": x_pca, "launches": launches,
             "sample": sample, "oracle": oracle}
 
@@ -557,6 +591,240 @@ def palantir_phase(main: dict, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# 7. the streamed path: BASELINE configs[2..3] at 1.3M cells
+# ----------------------------------------------------------------------
+
+# bench.py:phase_atlas's stand-in for the 1.3M-cell mouse-brain matrix
+STREAM_CELLS, STREAM_GENES = 1_300_000, 28_672
+STREAM_CAPACITY, STREAM_SHARD_ROWS = 512, 131_072
+STREAM_CHUNK = 131_072  # queries a knn_select launch
+STREAM_REFINE = 32  # candidates of the streamed kNN's refine
+STREAM_TOP = 2000
+STORE_ROWS, STORE_SHARD_ROWS = 131_072, 32_768  # the store sub-phase
+NEAR_TIE = 1e-5  # relative distance of a near-tie to the cutoff score
+
+
+def hvg_diff(a_genes, a_scores, b_genes, b_scores, n_top: int,
+             what: str) -> int:
+    """Size of the symmetric difference of two HVG sets; fails unless
+    every gene in it lies within NEAR_TIE (relative) of the
+    ``n_top``-th score in both runs' scores."""
+    a_scores = np.asarray(a_scores, np.float64)
+    b_scores = np.asarray(b_scores, np.float64)
+    diff = np.setxor1d(np.asarray(a_genes), np.asarray(b_genes))
+    cuts = [np.sort(s)[::-1][n_top - 1] for s in (a_scores, b_scores)]
+    far = [int(g) for g in diff
+           if any(abs(s[g] - c) > NEAR_TIE * abs(c)
+                  for s, c in zip((a_scores, b_scores), cuts))]
+    check(not far, f"{what}: genes {far[:10]} differ beyond near-ties of "
+                   f"the cutoff scores {cuts}")
+    return int(len(diff))
+
+
+def hvg_repeat(ds) -> dict:
+    """``hvg.select`` (seurat_v3, 2000) twice on the card and once on the
+    CPU over one input: the main path's log1p output, copied to the
+    host for the CPU run.  Each symmetric difference may hold near-ties
+    only."""
+    import torch
+
+    from sctools_tpu_torch import Pipeline, apply
+
+    dev = torch.device(DEVICE)
+    pre = Pipeline(MAIN_STEPS[:3]).run(ds, device=dev)
+    runs = []
+    for where in (dev, dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        out = apply("hvg.select", pre.to_device(where), n_top=STREAM_TOP,
+                    device=where)
+        hv = out.var["highly_variable"].cpu().numpy()
+        runs.append((np.flatnonzero(hv), out.var["hvg_score"].cpu().numpy(),
+                     time.perf_counter() - t0))
+        del out
+    del pre
+    (g1, s1, t1), (g2, s2, t2), (g3, s3, t3) = runs
+    return {"n_top": STREAM_TOP,
+            "card_vs_card": hvg_diff(g1, s1, g2, s2, STREAM_TOP,
+                                     "hvg.select, card run 1 vs 2"),
+            "card_vs_cpu": hvg_diff(g1, s1, g3, s3, STREAM_TOP,
+                                    "hvg.select, card vs CPU"),
+            "card_s": [t1, t2], "cpu_s": t3}
+
+
+def store_phase(src, card: str) -> dict:
+    """The shard store at scale: the first STORE_ROWS cells of the
+    streamed source written through ``StoreWriter`` (chunks of 8,192
+    rows) into a temporary directory, then streamed back by
+    ``ShardStore.source()`` with prefetch on.  Per-cell totals bitwise
+    those of the in-memory shards, gene moments within rtol 1e-5."""
+    import tempfile
+
+    import torch
+
+    from sctools_tpu_torch.data import stream as ST
+    from sctools_tpu_torch.data.shardstore import StoreWriter
+
+    dev = torch.device(DEVICE)
+    _, first = next(iter(src))
+    csr = first.to_scipy_csr()[:STORE_ROWS]
+    pieces = [ST.SparseCells(first.indices[a:a + STORE_SHARD_ROWS],
+                             first.data[a:a + STORE_SHARD_ROWS],
+                             min(STORE_SHARD_ROWS, STORE_ROWS - a),
+                             first.n_genes)
+              for a in range(0, STORE_ROWS, STORE_SHARD_ROWS)]
+    mem = ST.ShardSource(lambda: iter(pieces), STORE_ROWS, src.n_genes,
+                         STORE_SHARD_ROWS, device=dev)
+    want = ST.stream_stats(mem)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as d:
+        t0 = time.perf_counter()
+        w = StoreWriter(d, src.n_genes, shard_rows=STORE_SHARD_ROWS,
+                        chunk_rows=STORE_SHARD_ROWS // 4)
+        w.append(csr)
+        store = w.close()
+        write_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(store.chunk_path(c))
+                   for c in range(store.n_chunks))
+        ssrc = store.source(device=dev)
+        sync()
+        t0 = time.perf_counter()
+        got = ST.stream_stats(ssrc)
+        read_s = time.perf_counter() - t0
+    check(np.array_equal(got["total_counts"], want["total_counts"]),
+          "store: per-cell totals differ from the in-memory shards")
+    errs = {}
+    for key in ("gene_mean", "gene_var", "raw_gene_mean", "raw_gene_var",
+                "gene_nnz"):
+        a, b = got[key], want[key]
+        errs[key] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                            1e-30)))
+        check(np.allclose(a, b, rtol=1e-5, atol=0.0),
+              f"store: {key} beyond rtol 1e-5 (max rel {errs[key]})")
+    c = ssrc.counters
+    row = {"phase": "store", "card": card, "cells": STORE_ROWS,
+           "shards": store.n_shards, "chunks": store.n_chunks,
+           "nnz": int(csr.nnz), "disk_gb": disk / 1e9, "write_s": write_s,
+           "stats_pass_s": read_s, "read_gb_per_s": disk / 1e9 / read_s,
+           "prefetch_overlap_s": c.overlap_s, "prefetch_stall_s": c.stall_s,
+           "retries": c.retries, "max_rel_err": errs}
+    emit(row)
+    return row
+
+
+def stream_phase(card: str) -> dict:
+    """BASELINE configs[2..3] on the card at 1.3M cells (bench.py's
+    atlas stand-in, ``DeviceSyntheticSource``, materialized):
+    ``stream_stats`` → ``stream_hvg(seurat_v3, 2000)`` →
+    ``stream_pca(50, n_iter=2)`` → ``iter_knn_chunks(k=15, 131,072
+    queries a chunk, refine=STREAM_REFINE)``.  Each stage's
+    wall (ending in a sync) and peak memory; knn_select launched once a
+    chunk; recall@10 ≥ 0.99 against the float64 oracle on 1,024 sampled
+    cells; scores finite, explained variance non-increasing, ids in
+    range, distances sorted.  Then stats + HVG twice more (near-ties
+    only), and the store sub-phase."""
+    import torch
+
+    from sctools_tpu_torch.data import stream as ST
+    from sctools_tpu_torch.data.synthetic import DeviceSyntheticSource
+    from sctools_tpu_torch.ops import knn_kernel as KK
+    from sctools_tpu_torch.ops.knn import (iter_knn_chunks, knn_numpy,
+                                           recall_at_k)
+
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    src = DeviceSyntheticSource(
+        STREAM_CELLS, STREAM_GENES, capacity=STREAM_CAPACITY,
+        shard_rows=STREAM_SHARD_ROWS, n_clusters=8, seed=0, device=dev)
+    sync()
+    gen_s = time.perf_counter() - t0
+    gen_gb = sum(sh.indices.nbytes + sh.data.nbytes for _, sh in src) / 1e9
+    gen_peak = torch.cuda.max_memory_allocated() / 1e9
+    n = src.n_cells
+    stages = []
+
+    def stage(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        stages.append({"stage": name, "s": time.perf_counter() - t,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        return out
+
+    def knn_all(scores):
+        parts = list(iter_knn_chunks(scores, k=15, chunk=STREAM_CHUNK,
+                                     refine=STREAM_REFINE))
+        return (torch.cat([p[2] for p in parts]),
+                torch.cat([p[3] for p in parts]), len(parts))
+
+    KK.knn_select.launches = 0
+    sync()
+    t_path = time.perf_counter()
+    stats = stage("stream_stats", lambda: ST.stream_stats(src))
+    genes = stage("stream_hvg", lambda: ST.stream_hvg(
+        stats, n_top=STREAM_TOP, flavor="seurat_v3", src=src))
+    scores, comps, expl = stage("stream_pca", lambda: ST.stream_pca(
+        src, genes, stats["gene_mean"], n_components=50, n_iter=2))
+    idx, dist, chunks = stage("iter_knn_chunks", lambda: knn_all(scores))
+    sync()
+    path_s = time.perf_counter() - t_path
+    launches = KK.knn_select.launches
+    check(launches == chunks,
+          f"stream: {launches} knn_select launches for {chunks} chunks")
+
+    check(tuple(scores.shape) == (n, 50), f"stream: X_pca {scores.shape}")
+    check(bool(torch.isfinite(scores).all()), "stream: X_pca not finite")
+    ev = expl.cpu().numpy()
+    check(bool(np.all(np.diff(ev) <= 0)),
+          "stream: explained variance increases")
+    check(tuple(idx.shape) == (n, 15), f"stream: knn ids {idx.shape}")
+    check(bool(((idx >= 0) & (idx < n)).all()), "stream: ids out of range")
+    check(bool(torch.isfinite(dist).all())
+          and bool((dist[:, 1:] >= dist[:, :-1]).all()),
+          "stream: distances not finite or not sorted")
+    host = scores.cpu().numpy()
+    sample = np.sort(np.random.default_rng(0).choice(n, N_COMPARE,
+                                                     replace=False))
+    t0 = time.perf_counter()
+    oracle, _ = knn_numpy(host[sample], host, k=15, metric="cosine",
+                          chunk=256)
+    oracle_s = time.perf_counter() - t0
+    recall = recall_at_k(idx[sample].cpu().numpy(), oracle, k=10)
+    check(recall >= 0.99, f"stream: recall@10 {recall} < 0.99")
+    del idx, dist, host
+
+    # stats + HVG twice more: the set may move by near-ties only
+    sets = [(genes, ST.stream_hvg_scores(stats, src=src))]
+    for _ in range(2):
+        st = ST.stream_stats(src)
+        s = ST.stream_hvg_scores(st, src=src)
+        sets.append((np.sort(np.argsort(-s, kind="stable")[:STREAM_TOP]),
+                     s))
+    hvg_diffs = [hvg_diff(*sets[0], *sets[1], STREAM_TOP,
+                          "stream_hvg, path vs run 2"),
+                 hvg_diff(*sets[1], *sets[2], STREAM_TOP,
+                          "stream_hvg, run 2 vs run 3")]
+
+    store = store_phase(src, card)
+    emit({"phase": "stream", "card": card, "cells": n,
+          "genes": STREAM_GENES, "capacity": STREAM_CAPACITY,
+          "shards": src.n_shards, "shard_rows": src.shard_rows,
+          "generate_s": gen_s, "generate_gb": gen_gb,
+          "generate_peak_gb": gen_peak, "path_s": path_s,
+          "stages": stages, "knn_chunks": chunks,
+          "knn_select_launches": launches, "refine": STREAM_REFINE,
+          "recall_at_10": recall, "recall_queries": N_COMPARE,
+          "oracle_s": oracle_s, "explained_variance_top5": ev[:5].tolist(),
+          "hvg_sym_diffs": hvg_diffs})
+    del src
+    torch.cuda.empty_cache()
+    return {"scores": scores, "launches": launches, "store": store}
+
+
+# ----------------------------------------------------------------------
 # 4. graph tail and t-SNE on the main path's output
 # ----------------------------------------------------------------------
 
@@ -669,14 +937,26 @@ def graph_phase(data, card: str) -> dict:
                           getattr(out, where)[key]),
               f"{key} differs between two runs of the graph path")
     del again
+    # graph_jaccard's device time at the path's layout, early in the
+    # process: late in a long run the profiler's trace loses records
+    from sctools_tpu_torch.ops import graph as G
+
+    r_idx = remap_rows(idx0, torch.from_numpy(
+        G.reorder_permutation(idx0)).to(dev))
+    recorded = {}
+    jac_us = device_us({"fn": lambda: GK.jaccard(r_idx)},
+                       counts=recorded)["fn"]
     emit({"phase": "graph", "card": card, "cells": n,
           "genes": data.n_genes, "k": int(idx0.shape[1]), "run_s": run_s,
           "stages": stages, "launches": launches,
           "x_magic_max_abs_err": magic_err,
           "tsne_purity": pur_tsne, "graph_purity": pur_graph,
+          "jaccard_device_us": jac_us,
+          "jaccard_launches_recorded": recorded["fn"],
           "tsne_profile": tsne_profile(data)})
     return {"idx": idx0, "P": P, "x": x, "y": emb.contiguous(),
-            "launches": launches}
+            "launches": launches,
+            "jaccard_device": (jac_us, recorded["fn"])}
 
 
 REPULSION_KERNELS = ("tsne_split_kernel", "tsne_combine_kernel")
@@ -722,13 +1002,14 @@ def tsne_profile(data, iters: int = 40) -> dict:
         sync()
         wall_profiled = time.perf_counter() - t0
     rep = other = 0.0
-    kernels = {}
+    kernels, recorded = {}, {}
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total",
                     getattr(ev, "cuda_time_total", 0.0)) / 1e3 / iters
         if t <= 0:
             continue
         kernels[ev.key[:60]] = t
+        recorded[ev.key[:60]] = ev.count
         if any(k in ev.key for k in REPULSION_KERNELS):
             rep += t
         else:
@@ -740,7 +1021,10 @@ def tsne_profile(data, iters: int = 40) -> dict:
             "repulsion_device_ms_per_iter": rep,
             "other_device_ms_per_iter": other,
             "device_idle_share": 1.0 - (rep + other) / wall_ms,
-            "device_ms_per_iter_by_kernel": kernels}
+            "device_ms_per_iter_by_kernel": kernels,
+            # each repulsion kernel runs once an iteration: fewer
+            # recorded launches than iterations mean a lossy trace
+            "launches_recorded": recorded}
 
 
 # Column slices (a, b) of the input, b = None for the last column: they
@@ -1190,7 +1474,8 @@ def library_topk(q, c, k: int):
 
 def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
                 launches: int, card: str, peaks: dict,
-                ids_for_recall=None, n_bins: int | None = None) -> dict:
+                ids_for_recall=None, n_bins: int | None = None,
+                plain_reps: int = 3, library_reps: int = 5) -> dict:
     """Kernel against plain version on the first N_COMPARE queries,
     recall@10 of those queries against the float64 ``oracle`` ids, and
     the times: the exact kernel, or the binned one with ``n_bins`` (its
@@ -1235,9 +1520,10 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
     del kv, ki, pv, pi, surv
 
     ms = cuda_ms(kernel, warmup=False)
-    plain_ms = cuda_ms(lambda: plain(q), reps=3, warmup=False)
+    plain_ms = cuda_ms(lambda: plain(q), reps=plain_reps, warmup=False)
     with true_f32():
-        library_ms = cuda_ms(lambda: library_topk(q, c, k))
+        library_ms = cuda_ms(lambda: library_topk(q, c, k),
+                             reps=library_reps)
     nq, d = q.shape
     nc = c.shape[0]
     t_ops = 2.0 * nq * nc * d / peaks[dtype] * 1e3
@@ -1511,7 +1797,10 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
     ms = cuda_ms(lambda: GK.jaccard(r_idx), warmup=False)
     ms_nat = cuda_ms(lambda: GK.jaccard(idx))
     plain_ms = cuda_ms(lambda: GK.jaccard_plain(r_idx))
-    device = device_us({"fn": lambda: GK.jaccard(r_idx)})["fn"]
+    device, recorded = graph["jaccard_device"]
+    late = {}
+    device_late = device_us({"fn": lambda: GK.jaccard(r_idx)},
+                            counts=late)["fn"]
     bms, by = bound(2.0 * edges * k * k, 2.0 * n * k * 4, peaks)
     int_ms, int_by = bound(1.0 * edges * k * k, 2.0 * n * k * 4, peaks,
                            "int32")
@@ -1526,7 +1815,10 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
         "replaces": "sctools_tpu/ops/pallas_graph.py:432",
         "shape": f"{n}x{k} int32", "launches": launches["jaccard"],
         "max_abs_err": 0.0, "ms": ms, "ms_natural": ms_nat,
-        "device_us": device, "plain_ms": plain_ms, "library_ms": None,
+        "device_us": device, "device_launches_recorded": recorded,
+        "device_us_late": device_late,
+        "device_launches_recorded_late": late["fn"],
+        "plain_ms": plain_ms, "library_ms": None,
         "library": "none: no single PyTorch call intersects neighbour "
                    "lists per edge",
         "bound_ms": bms, "bound_by": by, "bound_ms_int32": int_ms,
@@ -1566,7 +1858,7 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
 
 
 def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
-                  peaks: dict) -> list:
+                  peaks: dict, stream: dict) -> list:
     import torch
 
     from sctools_tpu_torch import configure
@@ -1611,6 +1903,21 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
                 "bins", q, c, 15, "cosine", oracle, binned_launches, card,
                 peaks, n_bins=1024))
         del q, c, refined
+    del c_raw, q_raw
+
+    # the streamed path's launches: its first query chunk against all
+    # 1.3M cells of its own embedding (one timing of the plain version,
+    # seconds a call)
+    emb = stream["scores"]
+    host = emb.cpu().numpy()
+    oracle, _ = knn_numpy(host[:N_COMPARE], host, k=15, metric="cosine",
+                          chunk=256)
+    c = _prep(emb, "cosine", torch.float32)
+    k = STREAM_REFINE
+    out.append(kernel_case(
+        f"{STREAM_CHUNK}x{emb.shape[0]}x{DIM} k={k} float32 (stream path, "
+        "first chunk)", c[:STREAM_CHUNK], c, k, "cosine", oracle,
+        stream["launches"], card, peaks, plain_reps=1, library_reps=2))
     return out
 
 
@@ -1630,11 +1937,13 @@ def main() -> int:
     pal = palantir_phase(main_out, card)
     x_pca, launches = main_out["x_pca"], main_out["launches"]
     del main_out
+    stream = stream_phase(card)
     edges_phase()
     binned_edges_phase()
     graph_edges_phase()
     peaks = bounds_phase()
-    kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks)
+    kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks,
+                            stream)
     kernels += graph_kernels_phase(graph, card, peaks)
     kernels += path_matvec_rows(meta, pal, card, peaks)
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)

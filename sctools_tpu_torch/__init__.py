@@ -22,7 +22,7 @@ and the t-SNE repulsion run through hand-written CUDA kernels
 (``csrc/*.cu``), built with nvcc at the first launch.
 """
 
-from . import data, ops
+from . import data, ops, utils
 from .config import config, configure
 from .data.dataset import CellData
 from .data.sparse import SparseCells

@@ -1,5 +1,5 @@
 """Containers and data sources of the port."""
 
-from . import dataset, sparse, synthetic
+from . import dataset, io, shardstore, sparse, stream, synthetic
 
-__all__ = ["dataset", "sparse", "synthetic"]
+__all__ = ["dataset", "io", "shardstore", "sparse", "stream", "synthetic"]

@@ -69,9 +69,26 @@ class SparseCells:
         """Same sparsity pattern, new values."""
         return SparseCells(self.indices, data, self.n_cells, self.n_genes)
 
-    def to(self, device) -> "SparseCells":
-        return SparseCells(self.indices.to(device), self.data.to(device),
-                           self.n_cells, self.n_genes)
+    def nnz_per_row(self) -> torch.Tensor:
+        """(rows_padded,) int32 — stored entries per row."""
+        return self.valid_mask().sum(dim=1, dtype=torch.int32)
+
+    def to(self, device, non_blocking: bool = False) -> "SparseCells":
+        """Both planes on ``device``.  ``non_blocking`` copies from
+        pinned host memory run on the current CUDA stream without
+        blocking the host (the prefetch worker of ``data/stream.py``
+        issues them on its side stream)."""
+        return SparseCells(
+            self.indices.to(device, non_blocking=non_blocking),
+            self.data.to(device, non_blocking=non_blocking),
+            self.n_cells, self.n_genes)
+
+    def pin_memory(self) -> "SparseCells":
+        """Page-locked host copies of both planes (the source of an
+        asynchronous host-to-device copy)."""
+        return SparseCells(self.indices.pin_memory(),
+                           self.data.pin_memory(), self.n_cells,
+                           self.n_genes)
 
     @classmethod
     def from_scipy_csr(cls, csr, capacity: int | None = None,
@@ -166,6 +183,31 @@ def pack_ell(indptr, col_indices, data, rows_padded, capacity, sentinel):
     return out_idx, out_val
 
 
+def pack_ell_chunks(chunks, rows_padded, capacity, sentinel):
+    """Decode several CSR chunks (disjoint row ranges of one shard) into
+    one padded-ELL buffer — the shard store's read path.  ``chunks`` is
+    a list of ``(indptr, col_indices, data, row_offset)``; chunk rows
+    land at ``out[row_offset : row_offset + rows]``.  Returns numpy
+    ``(indices, values)`` of shape ``(rows_padded, capacity)``.  numpy
+    counterpart of the reference's native ``pack_ell_chunks``
+    (``sctools_tpu/native/__init__.py``), with the same output."""
+    dtype = (np.asarray(chunks[0][2]).dtype if chunks else np.float32)
+    out_idx = np.full((rows_padded, capacity), sentinel, dtype=np.int32)
+    out_val = np.zeros((rows_padded, capacity), dtype=dtype)
+    for indptr, col_indices, data, row0 in chunks:
+        indptr = np.asarray(indptr, np.int64)
+        rows = len(indptr) - 1
+        if rows and int(np.diff(indptr).max()) > capacity:
+            raise ValueError(
+                f"capacity={capacity} < max nnz/row="
+                f"{int(np.diff(indptr).max())}; refusing to drop counts")
+        idx, val = pack_ell(indptr, np.asarray(col_indices, np.int32),
+                            np.asarray(data), rows, capacity, sentinel)
+        out_idx[row0: row0 + rows] = idx
+        out_val[row0: row0 + rows] = val
+    return out_idx, out_val
+
+
 # ----------------------------------------------------------------------
 # Sparse linear algebra over row chunks.
 # ----------------------------------------------------------------------
@@ -223,17 +265,20 @@ def spmm(x: SparseCells, v: torch.Tensor,
 
 
 def spmm_t(x: SparseCells, w: torch.Tensor,
-           block: int = _ROW_CHUNK) -> torch.Tensor:
+           block: int = 4 * _ROW_CHUNK) -> torch.Tensor:
     """``Xᵀ @ W`` for dense ``W`` (rows_padded, d) → (n_genes, d).
-    Padding rows of ``W`` must be zero.  Chunked segment sum; the
-    sentinel bin is dropped."""
-
-    def slot_vals(ind, dat, row_offset):
-        wblk = w[row_offset:row_offset + ind.shape[0]]
-        return dat[:, :, None] * wblk[:, None, :]
-
-    return segment_reduce(x, slot_vals, w.shape[-1], dtype=w.dtype,
-                          block=block)
+    Padding rows of ``W`` must be zero.  Per row chunk the stored slots
+    are scattered by gene id; sentinel slots are left out before the
+    scatter, where all of them would contend for the same ``d``
+    addresses of one dropped row.  One host sync a chunk (the count of
+    stored slots)."""
+    d = w.shape[-1]
+    out = torch.zeros((x.n_genes, d), dtype=w.dtype, device=x.device)
+    for r0, ind, dat in _row_chunks(x, block):
+        r, s = (ind != x.sentinel).nonzero(as_tuple=True)
+        out.index_add_(0, ind[r, s].long(),
+                       dat[r, s, None] * w[r0 + r])
+    return out
 
 
 def row_sum(x: SparseCells) -> torch.Tensor:

@@ -4,8 +4,10 @@ Counterpart of ``sctools_tpu/ops/hvg.py``: per-gene mean and variance
 from the cancellation-free two-pass ``gene_moments``, a quadratic fit
 of log10(var) on log10(mean) (the reference's stand-in for loess), then
 the clipped standardised variance from one chunked segment pass, and a
-stable descending ranking.  The other flavors and ``batch_key`` are
-not ported yet.
+stable descending ranking.  The other flavors and ``batch_key`` of the
+in-memory op are not ported yet; the streamed ranking
+(``data/stream.py:stream_hvg``) has all five flavors, scored on the
+host in float64 by the ``*_np`` helpers below.
 """
 
 from __future__ import annotations
@@ -118,6 +120,78 @@ def _fit_mean_var_trend(mean: torch.Tensor, var: torch.Tensor
     eye = torch.eye(3, dtype=lm.dtype, device=lm.device)
     coef = torch.linalg.solve(G + 1e-6 * eye, b)
     return torch.pow(10.0, A @ coef)
+
+
+# ----------------------------------------------------------------------
+# Host float64 scores of the streamed ranking (data/stream.py)
+# ----------------------------------------------------------------------
+
+
+def _fit_mean_var_trend_np(mean: np.ndarray, var: np.ndarray
+                           ) -> np.ndarray:
+    """numpy (float64) counterpart of :func:`_fit_mean_var_trend`, for
+    the moments a streamed pass accumulates on the host."""
+    expressed = (mean > 0) & (var > 0)
+    lm = np.log10(np.where(mean > 0, mean, 1.0))
+    lv = np.log10(np.where(var > 0, var, 1.0))
+    w = expressed.astype(lm.dtype)
+    wsum = max(np.sum(w), 1.0)
+    m0 = np.sum(lm * w) / wsum
+    s0 = np.sqrt(max(np.sum(w * (lm - m0) ** 2) / wsum, 1e-12))
+    t = (lm - m0) / s0
+    A = np.stack([np.ones_like(t), t, t * t], axis=1)
+    Aw = A * w[:, None]
+    coef = np.linalg.solve(Aw.T @ A + 1e-6 * np.eye(3, dtype=lm.dtype),
+                           Aw.T @ lv)
+    return np.power(10.0, A @ coef)
+
+
+def _seurat_v3_scores_np(mean, var, clipped_ssq, n: int) -> np.ndarray:
+    """Standardised variance from the clipped second moment."""
+    return np.where((mean > 0) & (var > 0),
+                    clipped_ssq / max(n - 1, 1), 0.0)
+
+
+def _dispersion_scores_np(mean, var, n_bins: int = 20) -> np.ndarray:
+    """Seurat-v1 dispersion: var/mean, z-scored within ``n_bins``
+    equal-width bins of log1p(mean)."""
+    disp = np.where(mean > 0, var / np.maximum(mean, 1e-12), 0.0)
+    logm = np.log1p(mean)
+    lo = np.min(logm)
+    hi = np.max(logm) + 1e-6
+    bins = np.clip(((logm - lo) / (hi - lo) * n_bins).astype(np.int32),
+                   0, n_bins - 1)
+    m = np.zeros(n_bins)
+    s = np.zeros(n_bins)
+    cnt = np.zeros(n_bins)
+    np.add.at(cnt, bins, 1.0)
+    np.add.at(m, bins, disp)
+    np.add.at(s, bins, disp * disp)
+    cnt = np.maximum(cnt, 1.0)
+    bmean = m / cnt
+    bstd = np.sqrt(np.maximum(s / cnt - bmean ** 2, 1e-12))
+    return (disp - bmean[bins]) / bstd[bins]
+
+
+def _cell_ranger_scores_np(mean, var, min_bins: int = 3) -> np.ndarray:
+    """scanpy flavor "cell_ranger": dispersion normalised by the median
+    and median absolute deviation within mean-percentile bins; genes in
+    bins smaller than ``min_bins`` keep their raw dispersion."""
+    mean = np.asarray(mean, np.float64)
+    var = np.asarray(var, np.float64)
+    disp = np.where(mean > 0, var / np.maximum(mean, 1e-12), 0.0)
+    edges = np.percentile(mean[mean > 0], np.arange(10, 105, 5))
+    bins = np.digitize(mean, np.unique(edges))
+    score = np.zeros_like(disp)
+    for b in np.unique(bins):
+        m = bins == b
+        if m.sum() < min_bins:
+            score[m] = disp[m]
+            continue
+        med = np.median(disp[m])
+        mad = np.median(np.abs(disp[m] - med)) + 1e-12
+        score[m] = (disp[m] - med) / mad  # signed, as in scanpy
+    return score
 
 
 @register("hvg.select", fusable=False, mem_cost=2.5, mask_aware=False)

@@ -115,6 +115,33 @@ def _refine(query: torch.Tensor, cand: torch.Tensor, cand_idx: torch.Tensor,
     return torch.cat(idx_out), torch.cat(dist_out)
 
 
+def resolve_knn_chunk(chunk: int, n: int) -> int:
+    """The query-chunk size :func:`iter_knn_chunks` uses: ``chunk``
+    capped at ``n`` and rounded up to ``config.row_block``, so that
+    every chunk but the last is whole."""
+    return round_up(min(max(chunk, 1), n), config.row_block)
+
+
+def iter_knn_chunks(scores: torch.Tensor, *, k: int, chunk: int,
+                    metric: str = "cosine", refine: int = 0,
+                    n: int | None = None):
+    """Query-chunked self-kNN of the first ``n`` rows of ``scores``:
+    yields ``(offset, nq, idx, dist)`` per chunk, ``idx`` and ``dist``
+    trimmed to the chunk's ``nq`` valid rows.  Each chunk is one
+    :func:`knn_arrays` call (one ``knn_select`` launch on the card)
+    against all ``n`` candidates.  The consumer decides about budgets
+    and early stops (it just stops iterating); one that times the
+    chunks syncs the card itself."""
+    n = n or int(scores.shape[0])
+    chunk = resolve_knn_chunk(chunk, n)
+    for off in range(0, n, chunk):
+        nq = min(chunk, n - off)
+        idx_c, dist_c = knn_arrays(scores[off:off + nq], scores, k=k,
+                                   metric=metric, n_query=nq, n_cand=n,
+                                   refine=refine)
+        yield off, nq, idx_c[:nq], dist_c[:nq]
+
+
 def _get_rep(data: CellData, use_rep: str) -> torch.Tensor:
     if use_rep == "X":
         if isinstance(data.X, SparseCells):

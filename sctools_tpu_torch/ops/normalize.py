@@ -30,6 +30,18 @@ def _target(totals: torch.Tensor, x: SparseCells, target_sum):
     return torch.tensor(target_sum, dtype=x.data.dtype, device=x.device)
 
 
+def _library_size_sparse(x: SparseCells, target_sum):
+    """Per-shard library-size normalisation of the streamed passes
+    (``data/stream.py``): the rows of ``x`` scaled to ``target_sum``
+    (the median of the valid rows' totals when ``None``), and the
+    totals.  Counterpart of the reference's ``_library_size_sparse``."""
+    totals = row_sum(x)
+    target = _target(totals, x, target_sum)
+    scale = torch.where(totals > 0, target / torch.clamp(totals, min=1e-12),
+                        0.0)
+    return x.with_data(x.data * scale[:, None]), totals
+
+
 def _he_gene_flag(x: SparseCells, totals: torch.Tensor,
                   max_fraction: float) -> torch.Tensor:
     """Genes taking > ``max_fraction`` of ANY cell's counts (scanpy's

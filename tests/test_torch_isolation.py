@@ -66,7 +66,8 @@ def test_no_module_imports_jax_or_reference(path):
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "graph_kernel_sweep.py",
                                     "knn_kernel_sweep.py",
-                                    "tsne_kernel_sweep.py"])
+                                    "tsne_kernel_sweep.py",
+                                    "stream_sweep.py"])
 def test_card_scripts_import_no_jax_or_reference(script):
     for name in _imports(_ROOT / script):
         top = name.split(".")[0]

@@ -116,6 +116,21 @@ def test_spmm_t(pair, block):
                                rtol=RTOL, atol=ATOL)
 
 
+def test_spmm_t_row_chunks_without_stored_slots():
+    """``spmm_t`` leaves sentinel slots out before its scatter; a row
+    chunk with no stored slot at all (empty cells, padding rows) adds
+    nothing.  Against the dense float64 product; dyadic values, so
+    exact."""
+    X = synthetic_counts(300, 90, density=0.2, seed=5).X.tolil()
+    X[128:256] = 0
+    x = port_sparse.SparseCells.from_scipy_csr(X.tocsr())
+    w = _dyadic(np.random.default_rng(2), (x.rows_padded, 5))
+    w[x.n_cells:] = 0.0
+    got = port_sparse.spmm_t(x, torch.from_numpy(w), block=128)
+    want = X.toarray().astype(np.float64).T @ w[: x.n_cells]
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def test_cells_from_numpy_rejects_bad_planes(pair):
     ref, _ = pair
     ind = np.asarray(ref.indices).copy()
