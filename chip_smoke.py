@@ -49,7 +49,16 @@ Phases, each printing one JSON line, each fatal on a failed check:
              ``palantir.run(root=0)`` (rmatvec 100, one matvec per fate
              iteration): pseudotime in [0, 1], fate rows summing to 1,
              finite entropy, at least one terminal state;
-7. stream  — BASELINE configs[2..3] at 1.3M cells × 28,672 genes on the
+7. neighbors — the rest of the kNN surface on the main path's embedding
+             (68,579 × 50, k=15): ``knn_impl="xla"`` under both
+             ``knn_coarse`` with refine 0 and 32 (``knn_refine_mode``
+             "blocked" and "sorted"): no kernel launch, id sets ≥ 0.999
+             those of the knn_select route, recall@10 ≥ 0.99 on 2,048
+             sampled cells; ``neighbors.bbknn`` on a seeded 4-batch
+             label (knn_select once a batch, within-batch recall ≥ 0.99
+             against the float64 oracle); ``distance.pairwise`` on 4,096
+             rows × all cells within rtol 1e-3, atol 2e-2 of float64;
+8. stream  — BASELINE configs[2..3] at 1.3M cells × 28,672 genes on the
              card (bench.py's atlas stand-in: ``DeviceSyntheticSource``,
              capacity 512, 131,072-row shards, materialized):
              ``stream_stats`` → ``stream_hvg`` (seurat_v3, 2000) →
@@ -65,7 +74,19 @@ Phases, each printing one JSON line, each fatal on a failed check:
              directory and back by ``ShardStore.source()`` with
              prefetch (per-cell totals bitwise, gene moments within
              rtol 1e-5; prefetch overlap and stall, read rate);
-8. edges   — the kNN kernels against their plain versions at small
+9. mesh    — BASELINE configs[4]'s path on single-process meshes, on
+             the stream phase's 1.3M × 50 embedding (the stand-in for
+             the 10M-cell census slice): ``neighbors.knn_multichip``
+             (k=15, ring and all_gather) over 4 shards of cuda:0 and
+             over every card, against single-device ``neighbors.knn``
+             (recall ≥ 0.999, distances within rtol 1e-3, atol 5e-3;
+             bitwise equality printed) and the float64 oracle on 2,048
+             sampled cells (recall@10 ≥ 0.99), knn_select launched P²
+             (ring) or P (all_gather) times; ``impute.magic(t=3,
+             mesh=)`` over 4 shards on the graph phase's output within
+             atol 1e-4 of unsharded MAGIC, graph_matvec launched 3 × P²
+             or 3 × P times;
+10. edges  — the kNN kernels against their plain versions at small
              shapes that reach their corners (k = 1 to 256, d = 1 and
              256, euclidean, self exclusion, bf16, fewer candidates than
              k or than bins, n_bins 128 to 1024, exact ties; for
@@ -84,7 +105,7 @@ Phases, each printing one JSON line, each fatal on a failed check:
              and matvec and rmatvec at every width path (d = 1 to 914):
              a column slice of x gives that slice of the result bit for
              bit, and an x 4 bytes off alignment the same bits;
-9. kernels — each kernel against its plain version on the card at the
+11. kernels — each kernel against its plain version on the card at the
              path's shapes (kNN also at the configs[3] candidate width:
              1.3M points, 65,536 queries; f32 k=15, binned k=15 and
              bf16 k=32 then the f32 refine to 15, with recall against
@@ -107,7 +128,11 @@ Phases, each printing one JSON line, each fatal on a failed check:
              tsne_repulsion gives the same bits in two calls at the
              path's final layout.  knn_select also at the stream path's
              first chunk (131,072 × 1.3M × 50, k=32, f32, its own
-             embedding), with the stream path's launches.
+             embedding), with the stream path's launches, and at the
+             mesh phase's 4-shard shapes (a ring step, 325,632 ×
+             325,632, and an all_gather search, 325,632 × 1.3M);
+             graph_matvec also at ``diffuse_sharded``'s shapes (a ring
+             step on one shard's chunk, an all_gather product).
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -591,14 +616,140 @@ def palantir_phase(main: dict, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
-# 7. the streamed path: BASELINE configs[2..3] at 1.3M cells
+# 7. the rest of the kNN surface on the main path's embedding
+# ----------------------------------------------------------------------
+
+N_SAMPLED = 2048  # sampled queries of the recall checks of phases 7 and 9
+XLA_RUNS = [(coarse, refine, mode) for coarse in ("topk", "approx")
+            for refine, mode in ((0, None), (32, "blocked"), (32, "sorted"))]
+BBKNN_BATCHES, BBKNN_K = 4, 3
+PAIRWISE_ROWS = 4096
+
+
+def neighbors_phase(main: dict, card: str) -> dict:
+    """On the main path's embedding (68,579 × 50, k=15): the blocked
+    ``knn_impl="xla"`` search under both ``knn_coarse``, with refine 0
+    and 32 (``knn_refine_mode`` "blocked" and "sorted"): no kernel
+    launched, ids against the ``knn_select`` route at the same refine
+    (set agreement ≥ 0.999) and recall@10 ≥ 0.99 against the float64
+    oracle on 2,048 of the main phase's sampled cells; then
+    ``neighbors.bbknn`` on a seeded 4-batch label column (knn_select
+    once a batch; each sampled row's lists from each batch against
+    ``knn_numpy`` within that batch, recall ≥ 0.99); then
+    ``distance.pairwise``'s arrays on 4,096 query rows × all cells
+    against float64 numpy (rtol 1e-3, atol 2e-2) and the op on those
+    4,096 cells."""
+    import torch
+
+    from sctools_tpu_torch import Transform, configure
+    from sctools_tpu_torch.ops.distance import pairwise_arrays
+    from sctools_tpu_torch.ops.knn import knn_arrays, knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn_kernel import knn_select
+
+    dev = torch.device(DEVICE)
+    data = main["out"]
+    x = main["x_pca"]
+    n = x.shape[0]
+    step = len(main["sample"]) // N_SAMPLED  # spread over all rows
+    sample = main["sample"][::step][:N_SAMPLED]
+    oracle = main["oracle"][::step][:N_SAMPLED]
+    host = x.cpu().numpy()
+    select = {0: data.obsp["knn_indices"][:n].cpu().numpy(),
+              32: knn_arrays(x, x, k=15, refine=32)[0][:n].cpu().numpy()}
+    runs = []
+    for coarse, refine, mode in XLA_RUNS:
+        cfg = dict(knn_impl="xla", knn_coarse=coarse)
+        if mode:
+            cfg["knn_refine_mode"] = mode
+        knn_select.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        with configure(**cfg):
+            idx, dist = knn_arrays(x, x, k=15, refine=refine)
+        sync()
+        wall = time.perf_counter() - t0
+        what = f"xla {coarse} refine {refine} {mode or ''}".strip()
+        check(knn_select.launches == 0, f"{what}: launched knn_select")
+        idx = idx[:n].cpu().numpy()
+        dist = dist[:n].cpu().numpy()
+        check(np.isfinite(dist).all() and (np.diff(dist, axis=1) >= 0).all(),
+              f"{what}: distances not finite or not sorted")
+        agree = recall_at_k(idx, select[refine])
+        check(agree >= 0.999, f"{what}: id sets agree {agree} < 0.999 with "
+                              "the knn_select route")
+        recall = recall_at_k(idx[sample], oracle, k=10)
+        check(recall >= 0.99, f"{what}: recall@10 {recall} < 0.99")
+        runs.append({"knn_coarse": coarse, "refine": refine,
+                     "knn_refine_mode": mode, "s": wall,
+                     "id_sets_agree": agree,
+                     "ids_equal": float((idx == select[refine]).mean()),
+                     "recall_at_10": recall})
+
+    batch = np.random.default_rng(0).integers(0, BBKNN_BATCHES, n)
+    knn_select.launches = 0
+    out, stages = staged([Transform("neighbors.bbknn", k_within=BBKNN_K)],
+                         data.with_obs(batch=batch), dev)
+    bb_launches = knn_select.launches
+    check(bb_launches == BBKNN_BATCHES,
+          f"bbknn launched knn_select {bb_launches} times for "
+          f"{BBKNN_BATCHES} batches")
+    got = out.obsp["knn_indices"][:n].cpu().numpy()
+    check(got.shape == (n, BBKNN_BATCHES * BBKNN_K) and (got >= 0).all(),
+          f"bbknn ids {got.shape} with padding")
+    hits = total = 0
+    for b in range(BBKNN_BATCHES):
+        sel = np.flatnonzero(batch == b)
+        ids, _ = knn_numpy(host[sample], host[sel], k=BBKNN_K + 1,
+                           metric="cosine", chunk=1024)
+        ids = sel[ids]
+        for r, row in enumerate(sample):
+            want = [i for i in ids[r] if i != row][:BBKNN_K]
+            hits += len(set(want) & set(got[row].tolist()))
+            total += BBKNN_K
+    bb_recall = hits / total
+    check(bb_recall >= 0.99, f"bbknn within-batch recall {bb_recall}")
+
+    rows = np.sort(main["sample"][:PAIRWISE_ROWS])
+    sync()
+    t0 = time.perf_counter()
+    dmat = pairwise_arrays(x[torch.from_numpy(rows).to(dev)], x)
+    sync()
+    pair_s = time.perf_counter() - t0
+    x64 = host.astype(np.float64)
+    x64 /= np.maximum(np.linalg.norm(x64, axis=1, keepdims=True), 1e-12)
+    worst = 0.0
+    for r0 in range(0, len(rows), 512):
+        want = 1.0 - x64[rows[r0:r0 + 512]] @ x64.T
+        part = dmat[r0:r0 + 512].cpu().numpy().astype(np.float64)
+        worst = max(worst, float((np.abs(part - want)
+                                  - 1e-3 * np.abs(want)).max()))
+    check(worst <= 2e-2, f"distance.pairwise beyond rtol 1e-3 + atol 2e-2 "
+                         f"({worst} over)")
+    sub = data[rows]
+    op = Transform("distance.pairwise")(sub, device=dev)
+    check(torch.equal(op.obsp["pairwise_distances"],
+                      pairwise_arrays(sub.obsm["X_pca"][:len(rows)],
+                                      sub.obsm["X_pca"][:len(rows)])),
+          "distance.pairwise differs from pairwise_arrays")
+    emit({"phase": "neighbors", "card": card, "cells": n, "k": 15,
+          "xla_runs": runs, "recall_queries": len(sample),
+          "bbknn": {"batches": BBKNN_BATCHES, "k_within": BBKNN_K,
+                    "stages": stages, "knn_select_launches": bb_launches,
+                    "within_batch_recall": bb_recall},
+          "pairwise": {"rows": len(rows), "cols": n, "s": pair_s,
+                       "max_excess_over_rtol": worst}})
+    return {"runs": runs}
+
+
+# ----------------------------------------------------------------------
+# 8. the streamed path: BASELINE configs[2..3] at 1.3M cells
 # ----------------------------------------------------------------------
 
 # bench.py:phase_atlas's stand-in for the 1.3M-cell mouse-brain matrix
 STREAM_CELLS, STREAM_GENES = 1_300_000, 28_672
 STREAM_CAPACITY, STREAM_SHARD_ROWS = 512, 131_072
 STREAM_CHUNK = 131_072  # queries a knn_select launch
-STREAM_REFINE = 32  # candidates of the streamed kNN's refine
+STREAM_REFINE = 32  # bench.py's refine width on the atlas path
 STREAM_TOP = 2000
 STORE_ROWS, STORE_SHARD_ROWS = 131_072, 32_768  # the store sub-phase
 NEAR_TIE = 1e-5  # relative distance of a near-tie to the cutoff score
@@ -723,6 +874,7 @@ def stream_phase(card: str) -> dict:
     only), and the store sub-phase."""
     import torch
 
+    from sctools_tpu_torch.config import config
     from sctools_tpu_torch.data import stream as ST
     from sctools_tpu_torch.data.synthetic import DeviceSyntheticSource
     from sctools_tpu_torch.ops import knn_kernel as KK
@@ -816,12 +968,160 @@ def stream_phase(card: str) -> dict:
           "generate_peak_gb": gen_peak, "path_s": path_s,
           "stages": stages, "knn_chunks": chunks,
           "knn_select_launches": launches, "refine": STREAM_REFINE,
+          "refine_mode": config.resolved_refine_mode(n),
           "recall_at_10": recall, "recall_queries": N_COMPARE,
           "oracle_s": oracle_s, "explained_variance_top5": ev[:5].tolist(),
           "hvg_sym_diffs": hvg_diffs})
     del src
     torch.cuda.empty_cache()
     return {"scores": scores, "launches": launches, "store": store}
+
+
+# ----------------------------------------------------------------------
+# 9. configs[4]'s kNN and the diffusion on a single-process mesh
+# ----------------------------------------------------------------------
+
+MESH_SHARDS = 4  # shards of the mesh that names cuda:0 that many times
+MAGIC_T = 3
+
+
+def mesh_shard_rows(n: int, p: int) -> int:
+    """The rows of a shard of ``knn_multichip_arrays`` on n rows over p
+    shards at its default block."""
+    from sctools_tpu_torch.config import config, round_up
+
+    block = min(config.row_block, max(8, round_up(-(-n // p), 8)))
+    return round_up(n, p * block) // p
+
+
+def mesh_launches(n: int, p: int, strategy: str) -> int:
+    """The ``knn_select`` launches of ``knn_multichip_arrays`` on n rows
+    over p shards: one for each pair of shards holding rows (ring), one
+    for each shard holding rows (all_gather)."""
+    m = mesh_shard_rows(n, p)
+    busy = sum(1 for s in range(p) if n > s * m)
+    return busy * busy if strategy == "ring" else busy
+
+
+def mesh_phase(stream: dict, graph: dict, card: str) -> dict:
+    """configs[4]'s path on the stream phase's 1.3M × 50 embedding
+    (the stand-in for the 10M-cell census slice) and the main graph's
+    diffusion, on single-process meshes: ``neighbors.knn_multichip``
+    (k=15, ring and all_gather) over 4 shards that all name cuda:0 and
+    over every visible card, each against single-device
+    ``neighbors.knn`` (recall ≥ 0.999, sorted distances within rtol
+    1e-3 and atol 5e-3; whether the ids are equal bit for bit is
+    printed) and against the float64 oracle on 2,048 sampled cells
+    (recall@10 ≥ 0.99), with knn_select launched once for each pair of
+    busy shards (ring) or each busy shard (all_gather); then
+    ``impute.magic(t=3, mesh=)`` over 4 shards on the graph phase's
+    output, both strategies, within atol 1e-4 of unsharded MAGIC, with
+    graph_matvec launched t × P² (ring) or t × P (all_gather) times."""
+    import torch
+
+    from sctools_tpu_torch import Transform
+    from sctools_tpu_torch.data.dataset import CellData
+    from sctools_tpu_torch.ops import graph_kernels as GK
+    from sctools_tpu_torch.ops.knn import knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn_kernel import knn_select
+    from sctools_tpu_torch.parallel import make_mesh
+
+    dev = torch.device(DEVICE)
+    scores = stream["scores"]
+    n = scores.shape[0]
+    data = CellData(torch.zeros((n, 1), device=dev),
+                    obsm={"X_pca": scores})
+
+    def timed(transform, d):
+        sync()
+        t0 = time.perf_counter()
+        out = transform(d, device=dev)
+        sync()
+        return out, time.perf_counter() - t0
+
+    knn_select.launches = 0
+    single, single_s = timed(Transform("neighbors.knn", k=15), data)
+    check(knn_select.launches == 1, "single-device neighbors.knn launched "
+                                    f"knn_select {knn_select.launches} times")
+    one_i = single.obsp["knn_indices"][:n]
+    one_d = single.obsp["knn_distances"][:n]
+    one_d_sorted = np.sort(one_d.cpu().numpy(), axis=1)
+    sample = np.sort(np.random.default_rng(1).choice(n, N_SAMPLED,
+                                                     replace=False))
+    t0 = time.perf_counter()
+    oracle, _ = knn_numpy(scores[torch.from_numpy(sample).to(dev)].cpu()
+                          .numpy(), scores.cpu().numpy(), k=15,
+                          metric="cosine", chunk=256)
+    oracle_s = time.perf_counter() - t0
+    meshes = {f"cuda:0 x {MESH_SHARDS}": make_mesh(
+        devices=["cuda:0"] * MESH_SHARDS)}
+    meshes[f"{torch.cuda.device_count()} card(s)"] = make_mesh()
+    runs = []
+    for label, mesh in meshes.items():
+        for strategy in ("ring", "all_gather"):
+            knn_select.launches = 0
+            out, wall = timed(Transform("neighbors.knn_multichip", k=15,
+                                        mesh=mesh, strategy=strategy), data)
+            launches = knn_select.launches
+            want = mesh_launches(n, mesh.size, strategy)
+            what = f"knn_multichip {strategy} on {label}"
+            check(launches == want,
+                  f"{what}: {launches} knn_select launches, expected {want}")
+            idx = out.obsp["knn_indices"][:n]
+            dist = out.obsp["knn_distances"][:n]
+            check(bool((out.obsp["knn_indices"][n:] == -1).all()),
+                  f"{what}: padding rows hold ids")
+            bitwise = bool(torch.equal(idx, one_i) and torch.equal(dist,
+                                                                   one_d))
+            host_i = idx.cpu().numpy()
+            rec_one = recall_at_k(host_i, one_i.cpu().numpy())
+            check(rec_one >= 0.999, f"{what}: recall {rec_one} < 0.999 "
+                                    "against single-device neighbors.knn")
+            d_ok = np.allclose(np.sort(dist.cpu().numpy(), axis=1),
+                               one_d_sorted, rtol=1e-3, atol=5e-3)
+            check(d_ok, f"{what}: distances beyond rtol 1e-3, atol 5e-3")
+            recall = recall_at_k(host_i[sample], oracle, k=10)
+            check(recall >= 0.99, f"{what}: recall@10 {recall} < 0.99")
+            runs.append({"mesh": label, "shards": mesh.size,
+                         "strategy": strategy, "s": wall,
+                         "knn_select_launches": launches,
+                         "recall_vs_single": rec_one,
+                         "bitwise_equal_to_single": bitwise,
+                         "recall_at_10": recall})
+            del out, idx, dist
+
+    # MAGIC over 4 shards of cuda:0 on the graph phase's output
+    gdata = graph["out"]
+    g = gdata.n_cells
+    mesh = meshes[f"cuda:0 x {MESH_SHARDS}"]
+    GK.matvec.launches = 0
+    ref, ref_s = timed(Transform("impute.magic", t=MAGIC_T), gdata)
+    check(GK.matvec.launches == MAGIC_T,
+          f"impute.magic launched matvec {GK.matvec.launches} times")
+    want = ref.obsm["X_magic"][:g]
+    magic = []
+    for strategy in ("ring", "all_gather"):
+        GK.matvec.launches = 0
+        out, wall = timed(Transform("impute.magic", t=MAGIC_T, mesh=mesh,
+                                    strategy=strategy), gdata)
+        launches = GK.matvec.launches
+        expect = MAGIC_T * (mesh.size ** 2 if strategy == "ring"
+                            else mesh.size)
+        check(launches == expect, f"impute.magic(mesh=) {strategy}: matvec "
+                                  f"{launches} launches, expected {expect}")
+        err = float((out.obsm["X_magic"][:g] - want).abs().max())
+        check(err <= 1e-4, f"impute.magic(mesh=) {strategy}: max |error| "
+                           f"{err} > 1e-4")
+        magic.append({"strategy": strategy, "shards": mesh.size, "s": wall,
+                      "matvec_launches": launches, "max_abs_err": err})
+        del out
+    emit({"phase": "mesh", "card": card, "cells": n, "k": 15,
+          "single_knn_s": single_s, "oracle_s": oracle_s,
+          "recall_queries": N_SAMPLED, "knn_multichip": runs,
+          "magic": {"cells": g, "t": MAGIC_T, "unsharded_s": ref_s,
+                    "runs": magic}})
+    return {"runs": runs, "magic": magic, "mesh": mesh, "gdata": gdata,
+            "shard_rows": mesh_shard_rows(n, MESH_SHARDS)}
 
 
 # ----------------------------------------------------------------------
@@ -954,7 +1254,7 @@ def graph_phase(data, card: str) -> dict:
           "jaccard_device_us": jac_us,
           "jaccard_launches_recorded": recorded["fn"],
           "tsne_profile": tsne_profile(data)})
-    return {"idx": idx0, "P": P, "x": x, "y": emb.contiguous(),
+    return {"out": out, "idx": idx0, "P": P, "x": x, "y": emb.contiguous(),
             "launches": launches,
             "jaccard_device": (jac_us, recorded["fn"])}
 
@@ -1475,13 +1775,15 @@ def library_topk(q, c, k: int):
 def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
                 launches: int, card: str, peaks: dict,
                 ids_for_recall=None, n_bins: int | None = None,
-                plain_reps: int = 3, library_reps: int = 5) -> dict:
+                plain_reps: int = 3, library_reps: int = 5,
+                all_bins: bool = True) -> dict:
     """Kernel against plain version on the first N_COMPARE queries,
     recall@10 of those queries against the float64 ``oracle`` ids, and
     the times: the exact kernel, or the binned one with ``n_bins`` (its
     ids held with the bin-aware near-tie rule, recall gated at 0.98).
     The comparison calls are the timings' warm-up; the plain version is
-    timed over 3 calls (seconds each at the wide shape)."""
+    timed over 3 calls (seconds each at the wide shape).  ``all_bins``
+    adds ``binned_all_bins`` to an exact row."""
     import torch
 
     from sctools_tpu_torch.config import true_f32
@@ -1541,7 +1843,8 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
            "card": card}
     kb = 16 if k <= 16 else 32
     if n_bins is None:
-        row.update(binned_all_bins(q, c, k, metric))
+        if all_bins:
+            row.update(binned_all_bins(q, c, k, metric))
         layout = KK.knn_select_layout()
         splits = layout["splits"]
     else:
@@ -1634,19 +1937,22 @@ def bound(ops: float, nbytes: float, peaks: dict, dtype="float32"):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def edge_list_csr(idx, w, transpose: bool = False):
-    """The (n, k) edge list as an (n, n) CSR tensor P, or Pᵀ, for the
-    library yardstick (duplicate edges summed)."""
+def edge_list_csr(idx, w, transpose: bool = False, cols: int | None = None):
+    """The (n, k) edge list as an (n, cols) CSR tensor P (cols = n by
+    default), or Pᵀ, for the library yardstick (duplicate edges
+    summed)."""
     import torch
 
     n, k = idx.shape
+    cols_n = n if cols is None else cols
     rows = torch.arange(n, device=idx.device).repeat_interleave(k)
     cols = idx.reshape(-1).long()
     keep = cols >= 0
     pair = [rows[keep], cols[keep]]
     coo = torch.sparse_coo_tensor(torch.stack(pair[::-1] if transpose
                                               else pair),
-                                  w.reshape(-1)[keep], (n, n))
+                                  w.reshape(-1)[keep],
+                                  (cols_n, n) if transpose else (n, cols_n))
     return coo.coalesce().to_sparse_csr()
 
 
@@ -1664,6 +1970,34 @@ def path_matvec_rows(meta: dict, pal: dict, card: str, peaks: dict
         rows.append(matvec_row(pal["idx"], w, x, launches, what, card,
                                peaks))
     return rows
+
+
+def diffuse_matvec_rows(mesh: dict, card: str, peaks: dict) -> list:
+    """``graph_matvec`` at ``diffuse_sharded``'s shapes in the mesh
+    phase's MAGIC over 4 shards of cuda:0: shard 0's edges remapped to
+    its own chunk of x (a ring step) and with global ids against all of
+    x (an all_gather product)."""
+    from sctools_tpu_torch.parallel.graph_multichip import (
+        _Sharded, pad_rows_for_mesh)
+    from sctools_tpu_torch.parallel.mesh import CELL_AXIS, split_rows
+
+    data, m = mesh["gdata"], mesh["mesh"]
+    n = data.n_cells
+    idx, w, x, _ = pad_rows_for_mesh(
+        m, idx=data.obsp["knn_indices"][:n],
+        weights=data.obsp["diffusion_weights"][:n],
+        x=data.X.to_dense().contiguous())
+    launches = {r["strategy"]: r["matvec_launches"] for r in mesh["magic"]}
+    ring = _Sharded("ring step", idx, w, x, m, CELL_AXIS, "ring")
+    gather = _Sharded("all_gather", idx, w, x, m, CELL_AXIS, "all_gather")
+    x0 = split_rows(x, m)[0]
+    return [matvec_row(ring.local[0][0], ring.w[0], x0, launches["ring"],
+                       f"diffuse_sharded ring step, {m.size} shards",
+                       card, peaks),
+            matvec_row(gather.idx[0], gather.w[0], x,
+                       launches["all_gather"],
+                       f"diffuse_sharded all_gather, {m.size} shards",
+                       card, peaks)]
 
 
 def rmatvec_rows(meta: dict, palantir_launches: int, card: str,
@@ -1740,7 +2074,7 @@ def matvec_row(idx, w, x, launches: int, what: str, card: str,
                  scale=GK.matvec_plain(idx, w.abs(), x.abs()))
     slices = check_slices(lambda xx: GK.matvec(idx, w, xx), x, got,
                           f"matvec ({what})")
-    csr = edge_list_csr(idx, w)
+    csr = edge_list_csr(idx, w, cols=x.shape[0])
     with true_f32():
         lib_err = float((torch.sparse.mm(csr, x) - want).abs().max())
     del got, want
@@ -1858,7 +2192,7 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
 
 
 def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
-                  peaks: dict, stream: dict) -> list:
+                  peaks: dict, stream: dict, mesh: dict) -> list:
     import torch
 
     from sctools_tpu_torch import configure
@@ -1918,6 +2252,24 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
         f"{STREAM_CHUNK}x{emb.shape[0]}x{DIM} k={k} float32 (stream path, "
         "first chunk)", c[:STREAM_CHUNK], c, k, "cosine", oracle,
         stream["launches"], card, peaks, plain_reps=1, library_reps=2))
+
+    # the mesh phase's launches on the 4 shards of cuda:0: shard 0's
+    # queries against its own chunk (a ring step) and against all rows
+    # (an all_gather search)
+    runs = {r["strategy"]: r for r in mesh["runs"]
+            if r["mesh"] == f"cuda:0 x {MESH_SHARDS}"}
+    m = mesh["shard_rows"]
+    shard = c[:m]
+    own, _ = knn_numpy(host[:N_COMPARE], host[:m], k=15, metric="cosine",
+                       chunk=256)
+    for strategy, cand, orc, what in (
+            ("ring", shard, own, "ring step"),
+            ("all_gather", c, oracle, "all_gather search")):
+        out.append(kernel_case(
+            f"{m}x{cand.shape[0]}x{DIM} k=15 float32 (knn_multichip "
+            f"{what}, {MESH_SHARDS} shards of cuda:0)", shard, cand, 15,
+            "cosine", orc, runs[strategy]["knn_select_launches"], card,
+            peaks, plain_reps=1, library_reps=2, all_bins=False))
     return out
 
 
@@ -1935,17 +2287,20 @@ def main() -> int:
     graph = graph_phase(main_out["out"], card)
     meta = metacells_phase(main_out, card)
     pal = palantir_phase(main_out, card)
+    neighbors_phase(main_out, card)
     x_pca, launches = main_out["x_pca"], main_out["launches"]
     del main_out
     stream = stream_phase(card)
+    mesh = mesh_phase(stream, graph, card)
     edges_phase()
     binned_edges_phase()
     graph_edges_phase()
     peaks = bounds_phase()
     kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks,
-                            stream)
+                            stream, mesh)
     kernels += graph_kernels_phase(graph, card, peaks)
     kernels += path_matvec_rows(meta, pal, card, peaks)
+    kernels += diffuse_matvec_rows(mesh, card, peaks)
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,10 +19,12 @@ imports), with the same dotted op names and containers:
 
 The kNN search, the graph tail's diffusion steps and Jaccard weights,
 and the t-SNE repulsion run through hand-written CUDA kernels
-(``csrc/*.cu``), built with nvcc at the first launch.
+(``csrc/*.cu``), built with nvcc at the first launch.  ``parallel``
+runs the kNN and the diffusion over a single-process mesh of devices
+(``parallel.make_mesh``).
 """
 
-from . import data, ops, utils
+from . import data, ops, parallel, utils
 from .config import config, configure
 from .data.dataset import CellData
 from .data.sparse import SparseCells
@@ -31,4 +33,4 @@ from .registry import Pipeline, Transform, apply, get, names, register
 
 __all__ = ["CellData", "Pipeline", "SparseCells", "Transform", "apply",
            "config", "configure", "data", "get", "names", "ops",
-           "recipe_pipeline", "register"]
+           "parallel", "recipe_pipeline", "register"]

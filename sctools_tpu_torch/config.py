@@ -32,12 +32,13 @@ class Config:
     sublane: int = 8
     capacity_multiple: int = 128
 
-    # Query rows per block of the kNN refine; the rows of
-    # ``knn_arrays``'s result are padded to ``min(row_block, 256)``, as
-    # the reference's fused kernel pads them.
+    # Query rows per block of the kNN refine and of the blocked "xla"
+    # search; the rows of ``knn_arrays``'s result are padded to
+    # ``min(row_block, 256)``, as the reference's fused kernel pads them.
     row_block: int = 1024
-    # Candidate rows per tile of the kNN plain version (at most 1024,
-    # the reference kernel's tile).
+    # Candidate rows per tile of the blocked "xla" search, and of the
+    # kNN plain version (at most 1024 there, the reference kernel's
+    # tile).
     col_block: int = 2048
 
     matmul_dtype: str = "float32"  # or "bfloat16"
@@ -47,11 +48,40 @@ class Config:
     # (ops/knn_kernel.py:knn_select); "pallas_binned" the binned merge
     # (knn_binned, one survivor per bin of knn_bins columns).  Each runs
     # its CUDA kernel on a CUDA tensor and its plain version on a CPU
-    # tensor.  The reference's blocked "xla" search is not ported.
+    # tensor.  "xla" is the reference's blocked search (one
+    # row_block × col_block score tile at a time, merged into a running
+    # top k), in plain torch.  Unlike the reference, "auto" never
+    # resolves to "xla": the exact kernel is the default everywhere.
     knn_impl: str = "auto"
     # Bin count of the binned merge (rounded up to a multiple of 128);
     # two true neighbours share a bin with odds ~k²/(2·knn_bins).
     knn_bins: int = 1024
+
+    # Coarse top k of the blocked "xla" search: "topk" or "approx", the
+    # reference's names.  "approx" is an alias: the reference's
+    # lax.approx_max_k is exact off the TPU, so on every device the port
+    # runs both select the same ids, and the blocked search runs its one
+    # exact merge for either.
+    knn_coarse: str = "topk"
+
+    # Gather of the float32 refine: "blocked" (each query block gathers
+    # its candidates' rows) or "sorted" (all candidate ids argsorted,
+    # rows gathered in ascending order, only the scores scattered back).
+    # "auto": sorted from refine_sorted_min_cand candidates on.  Both
+    # select the same neighbours; scores may differ by float32
+    # reduction-order ulps.  The reference's cutoff, 786432, is where
+    # its TPU's table leaves on-chip memory.  On an H100 (700 W) sorted
+    # took 0.16-0.62x blocked's time at every table of 4,096 to 10M
+    # candidates (refine_sweep.py: 32 lists a query re-ranked to 15,
+    # 50 dims), the launches of blocked's 1024-query blocks costing more
+    # than any gather; below 4,096 neither was measured.
+    knn_refine_mode: str = "auto"
+    refine_sorted_min_cand: int = 4096
+
+    # Refine width of the reference's benchmarked kNN (bench.py's atlas
+    # path), kept for the reference's surface: no code of the port reads
+    # it.
+    bench_knn_refine: int = 32
 
     # Graph-kernel implementation (matvec, jaccard, t-SNE repulsion).
     # Only "auto" exists: the wrappers of ops/graph_kernels.py pick by
@@ -60,15 +90,28 @@ class Config:
     graph_impl: str = "auto"
 
     def resolved_knn_impl(self) -> str:
-        """"select" (the exact kernel) or "binned"."""
+        """"select" (the exact kernel), "binned" or "xla"."""
         if self.knn_impl in ("auto", "pallas"):
             return "select"
         if self.knn_impl == "pallas_binned":
             return "binned"
+        if self.knn_impl == "xla":
+            return "xla"
         raise ValueError(
-            f"knn_impl={self.knn_impl!r}: the port has 'auto' / 'pallas' "
-            "(exact kernel) and 'pallas_binned'; the blocked 'xla' search "
-            "is not ported (ROADMAP.md Queue 1 item 6)")
+            f"knn_impl={self.knn_impl!r}: use 'auto' / 'pallas' (exact "
+            "kernel), 'pallas_binned' or 'xla' (blocked search)")
+
+    def resolved_refine_mode(self, n_cand: int) -> str:
+        """"blocked" or "sorted" for a refine over ``n_cand``
+        candidates."""
+        if self.knn_refine_mode == "auto":
+            return ("sorted" if n_cand >= self.refine_sorted_min_cand
+                    else "blocked")
+        if self.knn_refine_mode in ("blocked", "sorted"):
+            return self.knn_refine_mode
+        raise ValueError(
+            f"knn_refine_mode={self.knn_refine_mode!r}: use 'auto', "
+            "'blocked' or 'sorted'")
 
     def resolved_graph_impl(self) -> str:
         if self.graph_impl != "auto":

@@ -16,8 +16,9 @@ card.  So:
 * **randomized PCA**: the iterates stay on the card, and every product
   with the HVG-subset normalised matrix streams the shards through a
   fused subset → normalise → centred product;
-* **kNN** on the card's scores, in query chunks (``ops/knn.py``
-  ``iter_knn_chunks``), one ``knn_select`` launch a chunk.
+* **kNN** on the card's scores, in one search or in query chunks
+  (``ops/knn.py`` ``iter_knn_chunks``), one ``knn_select`` launch a
+  chunk.
 
 Shards come from a :class:`ShardSource` (scipy CSR, h5ad, a shard store)
 or a ``DeviceSyntheticSource``.  With ``prefetch`` a worker thread packs
@@ -828,17 +829,18 @@ def stream_pipeline(src, *, n_top: int = 2000, n_components: int = 50,
     """Shards → QC → HVG → randomized PCA → kNN, out of core.  Returns
     the obs metrics (host), ``hvg_genes``, ``X_pca``, the PCA
     components and explained variance, and ``knn_indices`` /
-    ``knn_distances`` (one row per cell).
+    ``knn_distances``.
 
     Runs on ``device`` (``None``: the card, raising without one), which
-    must be the source's.  The kNN searches in query chunks of
-    ``knn_chunk`` cells (``iter_knn_chunks``; ``None``: all cells in one
-    chunk), each one kernel launch against all cells.
+    must be the source's.  The kNN is one ``knn_arrays`` search of all
+    cells (its padded rows), or with ``knn_chunk`` query chunks of that
+    many cells (``iter_knn_chunks``, one row per cell), each one kernel
+    launch against all cells.
     ``checkpoint_dir`` makes the stats and PCA passes resumable (see
     :func:`stream_stats`); ``prefetch_depth`` overrides a
     ``ShardSource``'s queue depth; ``omega`` and ``seed`` go to
     :func:`stream_pca`."""
-    from ..ops.knn import iter_knn_chunks
+    from ..ops.knn import iter_knn_chunks, knn_arrays
 
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
@@ -860,14 +862,16 @@ def stream_pipeline(src, *, n_top: int = 2000, n_components: int = 50,
     scores, comps, expl = stream_pca(
         src, hvg_genes, stats["gene_mean"], n_components=n_components,
         target_sum=target_sum, checkpoint=ck_pca, omega=omega, seed=seed)
-    parts_i, parts_d = [], []
-    for _off, _nq, idx_c, dist_c in iter_knn_chunks(
-            scores, k=k, chunk=knn_chunk or src.n_cells, metric=metric,
-            refine=refine, n=src.n_cells):
-        parts_i.append(idx_c)
-        parts_d.append(dist_c)
-    idx = torch.cat(parts_i)
-    dist = torch.cat(parts_d)
+    if knn_chunk is None:
+        idx, dist = knn_arrays(scores, scores, k=k, metric=metric,
+                               n_query=src.n_cells, n_cand=src.n_cells,
+                               refine=refine)
+    else:
+        parts = list(iter_knn_chunks(scores, k=k, chunk=knn_chunk,
+                                     metric=metric, refine=refine,
+                                     n=src.n_cells))
+        idx = torch.cat([p[2] for p in parts])
+        dist = torch.cat([p[3] for p in parts])
     return {
         "obs": {"total_counts": stats["total_counts"],
                 "n_genes": stats["n_genes"],

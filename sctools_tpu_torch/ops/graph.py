@@ -231,19 +231,17 @@ def diffusion_operator(data: CellData, symmetrize: bool = True,
 
 @register("impute.magic")
 def magic(data: CellData, t: int = 3, use_rep: str = "X",
-          n_genes_out: int | None = None, mesh=None, device=None
-          ) -> CellData:
+          n_genes_out: int | None = None, mesh=None,
+          strategy: str = "all_gather", device=None) -> CellData:
     """MAGIC-style imputation: ``t`` diffusion steps of the expression
     matrix along the cell graph, each one ``knn_matvec`` with
     ``diffusion_weights`` (computed first if missing).  Adds obsm
     ``X_magic`` (dense (n, n_genes_out or n_genes) float32) and uns
     ``magic_t``.  Densifies gene space: subset genes first.  ``mesh=``
-    (the multi-device diffusion) is not ported yet (ROADMAP.md Queue 1
-    item 9)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "impute.magic(mesh=...) is not ported yet: multi-GPU is "
-            "ROADMAP.md Queue 1 item 9")
+    (a ``parallel.make_mesh`` mesh) runs the diffusion with the rows
+    sharded over its devices (``parallel.diffuse_sharded``);
+    ``strategy="ring"`` holds one chunk of x a device instead of all of
+    it."""
     data = data.to_device(resolve_device(device))
     if "diffusion_weights" not in data.obsp:
         data = diffusion_operator(data, device=device)
@@ -258,6 +256,15 @@ def magic(data: CellData, t: int = 3, use_rep: str = "X",
     if n_genes_out is not None:
         Xd = Xd[:, :n_genes_out]
     out = Xd.float().contiguous()
+    if mesh is not None:
+        from ..parallel.graph_multichip import (diffuse_sharded,
+                                                pad_rows_for_mesh)
+
+        idx_p, p_p, x_p, _ = pad_rows_for_mesh(
+            mesh, idx=idx[:n], weights=p, x=out, who="impute.magic")
+        out = diffuse_sharded(idx_p, p_p, x_p, mesh, t,
+                              strategy=strategy)[:n].to(out.device)
+        return data.with_obsm(X_magic=out).with_uns(magic_t=t)
     band = _band(data)
     for _ in range(t):
         out = knn_matvec(idx, p, out, band_rows=band)

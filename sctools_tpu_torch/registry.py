@@ -10,9 +10,10 @@ Every op takes ``device=``.  ``None`` means the card, and without a
 card the op raises (``config.resolve_device``) instead of running on
 the CPU; tests pass ``device="cpu"``.
 
-``fusable=``, ``mem_cost=`` and ``mask_aware=`` are accepted and
-recorded so that ops declare what the reference's do, but nothing
-reads them yet: plans and buckets are not ported.
+``fusable=``, ``mem_cost=``, ``mask_aware=``, ``sharding=`` and
+``collective=`` are accepted and recorded so that ops declare what the
+reference's do, but nothing reads them yet: plans and buckets are not
+ported.
 """
 
 from __future__ import annotations
@@ -36,18 +37,20 @@ class UnknownBackendError(KeyError):
 
 
 def register(name: str, backend: str = DEFAULT_BACKEND, fusable=False,
-             mem_cost=None, mask_aware=False
-             ) -> Callable[[Callable], Callable]:
+             mem_cost=None, mask_aware=False, sharding=None,
+             collective=False) -> Callable[[Callable], Callable]:
     """Decorator: register ``fn`` as the implementation of ``name`` for
-    ``backend``.  ``fusable``, ``mem_cost`` and ``mask_aware`` are
-    recorded as declared (see ``sctools_tpu/registry.py:register`` for
-    their meaning) and have no effect in this port yet."""
+    ``backend``.  ``fusable``, ``mem_cost``, ``mask_aware``,
+    ``sharding`` and ``collective`` are recorded as declared (see
+    ``sctools_tpu/registry.py:register`` for their meaning) and have no
+    effect in this port yet."""
 
     def deco(fn: Callable) -> Callable:
         _REGISTRY.setdefault(name, {})[backend] = fn
         _META.setdefault(name, {})[backend] = {
             "fusable": fusable, "mem_cost": mem_cost,
-            "mask_aware": mask_aware}
+            "mask_aware": mask_aware, "sharding": sharding,
+            "collective": collective}
         return fn
 
     return deco

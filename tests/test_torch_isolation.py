@@ -67,7 +67,9 @@ def test_no_module_imports_jax_or_reference(path):
                                     "graph_kernel_sweep.py",
                                     "knn_kernel_sweep.py",
                                     "tsne_kernel_sweep.py",
-                                    "stream_sweep.py"])
+                                    "stream_sweep.py",
+                                    "refine_sweep.py",
+                                    "mesh_probe.py"])
 def test_card_scripts_import_no_jax_or_reference(script):
     for name in _imports(_ROOT / script):
         top = name.split(".")[0]
@@ -183,14 +185,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_registry_is_separate_from_the_reference():
     assert sctt.names() == [
-        "dpt.pseudotime", "embed.diffmap", "embed.spectral", "embed.tsne",
-        "graph.connectivities", "graph.diffusion_operator",
-        "graph.jaccard", "graph.reorder", "graph.restore_order",
-        "hvg.select", "impute.magic", "metacells.aggregate",
-        "metacells.seacells", "neighbors.knn", "normalize.library_size",
-        "normalize.log1p", "palantir.run", "pca.randomized",
-        "qc.per_cell_metrics"]
+        "distance.pairwise", "dpt.pseudotime", "embed.diffmap",
+        "embed.spectral", "embed.tsne", "graph.connectivities",
+        "graph.diffusion_operator", "graph.jaccard", "graph.reorder",
+        "graph.restore_order", "hvg.select", "impute.magic",
+        "metacells.aggregate", "metacells.seacells", "neighbors.bbknn",
+        "neighbors.knn", "neighbors.knn_multichip",
+        "normalize.library_size", "normalize.log1p", "palantir.run",
+        "pca.randomized", "qc.per_cell_metrics"]
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
+    meta = sctt.registry.metadata("neighbors.knn_multichip")
+    assert meta["sharding"] == "cells" and meta["collective"] is True
     with pytest.raises(NotImplementedError):
         sctt.Pipeline(["normalize.log1p"]).run(
             sctt.data.synthetic.synthetic_counts(8, 8), device="cpu",

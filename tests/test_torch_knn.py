@@ -190,24 +190,27 @@ def test_plain_version_blocking_does_not_change_the_result():
 @pytest.mark.parametrize("impl", ["auto", "pallas", "pallas_binned", "xla"])
 def test_knn_impl_routes_to_its_merge(impl, monkeypatch):
     """"auto" and "pallas" reach the exact merge, "pallas_binned" the
-    binned one (with ``config.knn_bins``); "xla" is not ported and
-    raises."""
+    binned one (with ``config.knn_bins``), "xla" the blocked search
+    (``knn_coarse="approx"`` accepted, the same merge as "topk"); an
+    unknown name raises."""
     pts = torch.from_numpy(gaussian_blobs(40, 3, seed=1)[0])
     calls = []
-    for name in ("knn_select", "knn_binned"):
+    for name in ("knn_select", "knn_binned", "_knn_blocked"):
         real = getattr(port_knn, name)
         monkeypatch.setattr(port_knn, name, lambda *a, _n=name, _f=real,
                             **kw: calls.append((_n, kw)) or _f(*a, **kw))
-    with configure(knn_impl=impl, knn_bins=200):
-        if impl == "xla":
-            with pytest.raises(ValueError, match="xla"):
-                port_knn.knn_arrays(pts, pts, k=2)
-            return
+    with configure(knn_impl=impl, knn_bins=200, knn_coarse="approx"):
         port_knn.knn_arrays(pts, pts, k=2)
-    want = "knn_binned" if impl == "pallas_binned" else "knn_select"
+    want = {"pallas_binned": "knn_binned",
+            "xla": "_knn_blocked"}.get(impl, "knn_select")
     assert [c[0] for c in calls] == [want]
     if want == "knn_binned":
         assert calls[0][1]["n_bins"] == 200
+    if want == "_knn_blocked":
+        assert "coarse" not in calls[0][1]
+    with configure(knn_impl="blocked"):
+        with pytest.raises(ValueError, match="knn_impl"):
+            port_knn.knn_arrays(pts, pts, k=2)
 
 
 # --------------------------------------------------------- binned merge

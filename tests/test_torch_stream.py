@@ -30,7 +30,7 @@ from sctools_tpu.data.synthetic import _cluster_cdfs as ref_cluster_cdfs
 from sctools_tpu.data.synthetic import synthetic_counts
 from sctools_tpu.ops.pca import _sketch_omega
 from sctools_tpu_torch.carry import pca_omega_from_numpy
-from sctools_tpu_torch.config import configure
+from sctools_tpu_torch.config import configure, round_up
 from sctools_tpu_torch.data import stream as S
 from sctools_tpu_torch.data.synthetic import (DeviceSyntheticSource,
                                               _cluster_cdfs)
@@ -319,11 +319,12 @@ def test_iter_knn_chunks_bitwise_one_search(pcas):
             parts = list(iter_knn_chunks(scores, k=15, chunk=300,
                                          refine=32))
         assert len(parts) == chunks
-        assert [p[0] for p in parts] == [i * parts[0][1]
-                                         for i in range(chunks)]
-        assert sum(p[1] for p in parts) == n
-        assert torch.equal(torch.cat([p[2] for p in parts]), idx[:n])
-        assert torch.equal(torch.cat([p[3] for p in parts]), dist[:n])
+        offs, nqs, idxs, dists, walls = zip(*parts)
+        assert list(offs) == [i * nqs[0] for i in range(chunks)]
+        assert sum(nqs) == n
+        assert torch.equal(torch.cat(idxs), idx[:n])
+        assert torch.equal(torch.cat(dists), dist[:n])
+        assert all(isinstance(w, float) and w >= 0.0 for w in walls)
 
 
 def test_stream_pipeline_knn_chunk_same_result(src, mito, hvg, omega):
@@ -334,12 +335,17 @@ def test_stream_pipeline_knn_chunk_same_result(src, mito, hvg, omega):
     n = full["n_cells"]
     np.testing.assert_array_equal(full["hvg_genes"], hvg)
     assert torch.equal(chunked["X_pca"], full["X_pca"])
-    assert full["knn_indices"].shape == (n, 10)
-    assert torch.equal(chunked["knn_indices"], full["knn_indices"])
-    assert torch.equal(chunked["knn_distances"], full["knn_distances"])
+    # without knn_chunk, knn_arrays' padded rows, as the reference's
+    # stream_pipeline returns them; with it, one row per cell
+    assert full["knn_indices"].shape == (round_up(n, 256), 10)
+    assert (full["knn_indices"][n:] == -1).all()
+    assert chunked["knn_indices"].shape == (n, 10)
+    assert torch.equal(chunked["knn_indices"], full["knn_indices"][:n])
+    assert torch.equal(chunked["knn_distances"],
+                       full["knn_distances"][:n])
     emb = full["X_pca"].numpy()
     ref, _ = knn_numpy(emb, emb, k=10, metric="cosine")
-    assert recall_at_k(full["knn_indices"].numpy(), ref) >= 0.99
+    assert recall_at_k(full["knn_indices"][:n].numpy(), ref) >= 0.99
     assert len(full["obs"]["total_counts"]) == n
 
 
