@@ -19,6 +19,27 @@ Phases, each printing one JSON line, each fatal on a failed check:
              the card and once on the CPU over the path's log1p output:
              each symmetric difference of the 2000-gene sets may hold
              near-ties only (scores within 1e-5 relative of the 2000th);
+2b. recipes — the preprocessing recipes on the main phase's raw counts
+             (68,579 × 32,738), packed to the card once: the pipelines
+             ``recipe_pipeline(name).run`` of seurat, zheng17,
+             pearson_residuals, atlas_knn and annotation_reference, and
+             ``apply("recipe.*")`` of seurat, zheng17, pearson_residuals
+             and weinreb17, each at its defaults, each run's wall and
+             peak device memory.  Checks: kept cells and genes against a
+             count on the host CSR (weinreb17's mean/CV filter against
+             float64, differing genes only within 1e-4 of a threshold);
+             the dispersion, cell_ranger and pearson_residuals HVG sets
+             on the card against the CPU on the recipe's input (near-ties
+             only; for the two dispersion flavors, within the runs'
+             largest score disagreement, itself under 1e-3 of the largest
+             score), atlas_knn's seurat_v3 set against phase main's CPU
+             run; layers["counts"] equal to the raw counts on 2,048
+             sampled cells; every scaled gene that no clip touched with
+             mean 0 and std 1 within 1e-3; finite PCAs with
+             non-increasing variance; atlas_knn's recall@10 ≥ 0.99 on
+             2,048 sampled cells with knn_select launched; each one-call
+             op's cells and genes those of its pipeline, X within 1e-4;
+             the raw planes unchanged at the end;
 3. binned  — ``neighbors.knn`` (k=15) on the main path's output under
              ``knn_impl="pallas_binned"`` (1024 bins): knn_binned
              launched once and knn_select never, recall@10 ≥ 0.98;
@@ -130,7 +151,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              first chunk (131,072 × 1.3M × 50, k=32, f32, its own
              embedding), with the stream path's launches, and at the
              mesh phase's 4-shard shapes (a ring step, 325,632 ×
-             325,632, and an all_gather search, 325,632 × 1.3M);
+             325,632, and an all_gather search, 325,632 × 1.3M), and on
+             the recipes phase's atlas_knn embedding with that run's
+             launches;
              graph_matvec also at ``diffuse_sharded``'s shapes (a ring
              step on one shard's chunk, an all_gather product).
 
@@ -388,14 +411,14 @@ def main_phase(card: str):
                           metric="cosine", chunk=1024)
     recall = recall_at_k(idx[sample], oracle, k=10)
     check(recall >= 0.99, f"main path recall@10 {recall} < 0.99")
-    hvg_sets = hvg_repeat(ds)
+    hvg_sets, hvg_cpu = hvg_repeat(ds)
     emit({"phase": "main", "card": card, "cells": MAIN_CELLS,
           "genes": MAIN_GENES, "generate_s": gen_s, "run_s": run_s,
           "stages": stages, "knn_select_launches": launches,
           "recall_at_10": recall, "recall_queries": N_RECALL,
           "hvg_sets": hvg_sets})
     return {"raw": ds, "out": out, "x_pca": x_pca, "launches": launches,
-            "sample": sample, "oracle": oracle}
+            "sample": sample, "oracle": oracle, "hvg_cpu": hvg_cpu}
 
 
 def staged(steps, data, dev) -> tuple:
@@ -413,6 +436,335 @@ def staged(steps, data, dev) -> tuple:
         stages.append({"stage": t.name, "s": time.perf_counter() - t0,
                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
     return data, stages
+
+
+# ----------------------------------------------------------------------
+# 2b. recipes
+# ----------------------------------------------------------------------
+
+RECIPE_PIPELINES = ("seurat", "zheng17", "pearson_residuals", "atlas_knn",
+                    "annotation_reference")
+# one-call op → the pipeline it runs (weinreb17 is one-call only)
+RECIPE_OPS = {"recipe.seurat": "seurat", "recipe.zheng17": "zheng17",
+              "recipe.pearson_residuals": "pearson_residuals",
+              "recipe.weinreb17": None}
+# steps of each pipeline before its hvg.select, and the flavor there
+HVG_PREFIX = {"seurat": (6, "dispersion", 2000),
+              "zheng17": (3, "cell_ranger", 1000),
+              "pearson_residuals": (2, "pearson_residuals", 2000)}
+SCALED = {"seurat": 10.0, "zheng17": None, "atlas_knn": 10.0,
+          "recipe.seurat": 10.0, "recipe.zheng17": None,
+          "recipe.weinreb17": None}
+N_LAYER_ROWS = 2048  # sampled cells of the layers["counts"] check
+SCALE_COLS = 2048  # genes a float64 tile of the scaled-moments check
+SCALE_TOL = 1e-3  # |mean| and |std − 1| of a scaled, unclipped gene
+
+
+def expected_filters(csr) -> dict:
+    """The recipes' kept cells and genes, counted on the host CSR:
+    seurat keeps cells with ≥ 200 genes, then genes in ≥ 3 of them;
+    zheng17 genes in ≥ 1 cell, pearson_residuals in ≥ 5."""
+    n_cells, n_genes = csr.shape
+    per_gene = np.bincount(csr.indices, minlength=n_genes)
+    cells = np.flatnonzero(np.diff(csr.indptr) >= 200)
+    kept = csr[cells]
+    return {"seurat": (cells, np.flatnonzero(np.bincount(
+                kept.indices, minlength=n_genes) >= 3)),
+            "zheng17": (np.arange(n_cells), np.flatnonzero(per_gene >= 1)),
+            "pearson_residuals": (np.arange(n_cells),
+                                  np.flatnonzero(per_gene >= 5))}
+
+
+def weinreb_expected(csr, mean_threshold: float = 0.01,
+                     cv_threshold: float = 2.0):
+    """weinreb17's gene filter in float64 on the host: median-normalised
+    counts, mean and coefficient of variation (ddof=1) per gene."""
+    import scipy.sparse as sp
+
+    x = csr.astype(np.float64)
+    totals = np.asarray(x.sum(axis=1)).ravel()
+    scale = np.where(totals > 0, np.median(totals) / np.maximum(totals,
+                                                                1e-300), 0)
+    x = sp.diags(scale) @ x
+    n = x.shape[0]
+    mu = np.asarray(x.sum(axis=0)).ravel() / n
+    ss = np.asarray(x.multiply(x).sum(axis=0)).ravel()
+    var = np.maximum(ss - n * mu * mu, 0.0) / (n - 1)
+    cv = np.sqrt(var) / np.maximum(mu, 1e-12)
+    return (mu >= mean_threshold) & (cv >= cv_threshold), mu, cv
+
+
+def scaled_moments(X, clip, what: str) -> dict:
+    """``normalize.scale``'s output: within ±clip, and every gene that
+    no clip touched (so its values are those before the clip) with mean
+    0 and std 1 (float64 on the card, SCALE_COLS genes at a time)."""
+    import torch
+
+    top, errs, checked, clipped = 0.0, [0.0, 0.0], 0, 0
+    for c0 in range(0, X.shape[1], SCALE_COLS):
+        x = X[:, c0:c0 + SCALE_COLS].double()
+        amax = x.abs().amax(dim=0)
+        top = max(top, float(amax.max()))
+        std = x.std(dim=0, correction=0)
+        free = std > 0
+        if clip is not None:
+            free &= amax < clip
+            clipped += int((amax >= clip).sum())
+        checked += int(free.sum())
+        if free.any():
+            errs[0] = max(errs[0], float(x.mean(dim=0)[free].abs().max()))
+            errs[1] = max(errs[1], float((std[free] - 1).abs().max()))
+        del x
+    check(clip is None or top <= clip,
+          f"{what}: |X| reaches {top} > clip {clip}")
+    check(checked > 0, f"{what}: no scaled gene escaped the clip")
+    check(max(errs) <= SCALE_TOL,
+          f"{what}: scaled genes have |mean| up to {errs[0]}, |std - 1| up "
+          f"to {errs[1]}")
+    return {"genes_checked": checked, "genes_clipped": clipped,
+            "max_abs_mean": errs[0], "max_abs_std_minus_1": errs[1]}
+
+
+def counts_layer_ok(out, csr, gene_pos: dict, what: str) -> None:
+    """``layers["counts"]`` equals the raw counts subset to the kept
+    cells and genes, on N_LAYER_ROWS sampled cells."""
+    from sctools_tpu_torch.data.sparse import gather_rows_sparse
+
+    cells = out.obs["cell_id"][: out.n_cells].cpu().numpy()
+    genes = [gene_pos[g] for g in out.var["gene_name"]]
+    rows = np.sort(np.random.default_rng(1).choice(
+        len(cells), min(N_LAYER_ROWS, len(cells)), replace=False))
+    got = gather_rows_sparse(out.layers["counts"], rows).to_scipy_csr()
+    want = csr[cells[rows]][:, genes]
+    check(got.shape == want.shape and (got != want).nnz == 0,
+          f"{what}: layers['counts'] is not the raw counts of the kept "
+          "cells and genes")
+
+
+def pca_ok(out, what: str) -> None:
+    import torch
+
+    x = out.obsm["X_pca"][: out.n_cells]
+    ev = out.uns["pca_explained_variance"]
+    check(x.shape == (out.n_cells, 50), f"{what}: X_pca shape {x.shape}")
+    check(bool(torch.isfinite(x).all()) and bool(torch.isfinite(ev).all()),
+          f"{what}: the PCA is not finite")
+    check(bool((ev[1:] <= ev[:-1] * (1 + 1e-5)).all()),
+          f"{what}: explained variance not non-increasing")
+
+
+def timed_run(fn) -> tuple:
+    """``fn()`` on the card: its output, wall seconds and peak device
+    memory (GB)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def hvg_card_vs_cpu(pre, flavor: str, n_top: int, what: str) -> dict:
+    """``hvg.select`` of ``flavor`` on the card and on the CPU over one
+    input (the recipe's steps before it).  The gene means and variances
+    must agree within rtol 1e-4; the sets may differ in near-ties only,
+    and for the dispersion-based flavors in genes whose own score moved
+    across the cutoff (by as much as it moved from card to CPU, plus
+    the cutoff's move): their float32 bin statistics, the reference's
+    formula, amplify the moments' ulps (a bin's variance s/n − mean²
+    cancels; the card's sums run in no fixed order).  Returns the card
+    run's set and scores, and ``band``, the largest such move, which
+    bounds the flips between two card runs."""
+    import torch
+
+    from sctools_tpu_torch import apply
+
+    runs = []
+    for where in (torch.device(DEVICE), torch.device("cpu")):
+        t0 = time.perf_counter()
+        out = apply("hvg.select", pre.to_device(where), n_top=n_top,
+                    flavor=flavor, device=where)
+        hv = out.var["highly_variable"].cpu().numpy()
+        runs.append((np.flatnonzero(hv),
+                     out.var["hvg_score"].cpu().numpy().astype(np.float64),
+                     time.perf_counter() - t0,
+                     [out.var[k].cpu().numpy().astype(np.float64)
+                      for k in ("means", "variances")]))
+        del out
+    (g1, s1, t1, m1), (g2, s2, t2, m2) = runs
+    for k, a, b in zip(("means", "variances"), m1, m2):
+        bad = np.abs(a - b) > 1e-4 * np.abs(b) + 1e-12
+        check(not bad.any(), f"{what}: card and CPU gene {k} differ at "
+                             f"{np.flatnonzero(bad)[:10]}")
+    ds = np.abs(s1 - s2)
+    cut_moved = abs(np.sort(s1)[::-1][n_top - 1]
+                    - np.sort(s2)[::-1][n_top - 1])
+    noisy = flavor in ("dispersion", "cell_ranger")
+    band = float(ds.max() + cut_moved) if noisy else 0.0
+    return {"card_genes": g1, "card_scores": s1, "band": band,
+            "summary": {"flavor": flavor, "card_vs_cpu": hvg_diff(
+                g1, s1, g2, s2, n_top, f"{what}: hvg.select card vs CPU",
+                noise=ds + cut_moved if noisy else None),
+                "max_score_diff": float(ds.max()),
+                "genes_score_diff_over_1e-4": int(
+                    (ds > 1e-4 * (1 + np.abs(s2))).sum()),
+                "card_s": t1, "cpu_s": t2}}
+
+
+def recipes_phase(main: dict, card: str) -> dict:
+    """The five pipeline recipes and the four one-call recipe ops on the
+    card at 68,579 × 32,738, from the main path's raw counts (packed to
+    the card once; no op may write them: they are compared at the end).
+    Checks: the kept cells and genes against a count on the host CSR;
+    each HVG flavor's set against the port's CPU run on the same input
+    (the recipe's steps before hvg.select), and each recipe's genes
+    against that set; ``layers["counts"]`` against the raw counts on
+    sampled cells; scaled genes with mean 0 and std 1 where no clip
+    touched them; finite PCAs; atlas_knn's recall@10 ≥ 0.99 against the
+    float64 oracle on 2,048 sampled cells with knn_select launched; each
+    one-call op against its pipeline.  Each run's wall and peak device
+    memory."""
+    import torch
+
+    from sctools_tpu_torch import Pipeline, apply, recipe_pipeline
+    from sctools_tpu_torch.ops.knn import knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn_kernel import knn_select
+
+    dev = torch.device(DEVICE)
+    raw = main["raw"]
+    csr = raw.X.tocsr()
+    names = np.asarray(raw.var["gene_name"]).astype(str)
+    gene_pos = {g: i for i, g in enumerate(names)}
+    data = raw.to_device(dev).with_obs(cell_id=torch.arange(
+        raw.n_cells, dtype=torch.int32, device=dev))
+    planes = (data.X.indices.clone(), data.X.data.clone())
+    expect = expected_filters(csr)
+    runs, hvg, kept = [], {}, {}
+    atlas = None
+
+    def genes_of(out):
+        return np.array([gene_pos[g] for g in out.var["gene_name"]])
+
+    for name in RECIPE_PIPELINES:
+        pipe = recipe_pipeline(name)
+        knn_select.launches = 0
+        out, wall, peak = timed_run(lambda: pipe.run(data, device=dev))
+        launches = knn_select.launches
+        info = {"recipe": f"recipe_pipeline({name!r})", "s": wall,
+                "peak_gb": peak, "cells": out.n_cells, "genes": out.n_genes}
+        cells = out.obs["cell_id"][: out.n_cells].cpu().numpy()
+        genes = genes_of(out)
+        if name in HVG_PREFIX:
+            n_pre, flavor, n_top = HVG_PREFIX[name]
+            pre = Pipeline(list(pipe)[:n_pre]).run(data, device=dev)
+            want_cells, want_genes = expect[name]
+            check(np.array_equal(cells, want_cells),
+                  f"{name}: {len(cells)} cells kept, the host count keeps "
+                  f"{len(want_cells)} (or others)")
+            check(np.array_equal(genes_of(pre), want_genes),
+                  f"{name}: the gene filter differs from the host count")
+            h = hvg_card_vs_cpu(pre, flavor, n_top, name)
+            del pre
+            # the recipe's genes: the card run's set, up to near-ties
+            info["hvg"] = dict(h["summary"], recipe_vs_card=hvg_diff(
+                np.searchsorted(want_genes, genes), h["card_scores"],
+                h["card_genes"], h["card_scores"], n_top,
+                f"{name}: recipe genes vs hvg.select", noise=h["band"]))
+            hvg[name] = h
+            check(out.n_genes == n_top, f"{name}: {out.n_genes} genes")
+        else:
+            check(np.array_equal(cells, np.arange(raw.n_cells))
+                  and out.n_genes == raw.n_genes,
+                  f"{name}: cells or genes were dropped")
+        if name in SCALED:
+            info["scaled"] = scaled_moments(out.X, SCALED[name], name)
+        if "counts" in out.layers:
+            counts_layer_ok(out, csr, gene_pos, name)
+        if "X_pca" in out.obsm:
+            pca_ok(out, name)
+        if name == "atlas_knn":
+            cpu_genes, cpu_scores = main["hvg_cpu"]
+            hv = out.var["highly_variable"].cpu().numpy()
+            info["hvg"] = {"flavor": "seurat_v3", "card_vs_cpu": hvg_diff(
+                np.flatnonzero(hv), out.var["hvg_score"].cpu().numpy(),
+                cpu_genes, cpu_scores, 2000,
+                "atlas_knn: seurat_v3 card vs the main phase's CPU run")}
+            n = out.n_cells
+            emb = out.obsm["X_pca"][:n]
+            idx = out.obsp["knn_indices"][:n].cpu().numpy()
+            host = emb.cpu().numpy()
+            sample = np.sort(np.random.default_rng(2).choice(
+                n, N_SAMPLED, replace=False))
+            oracle, _ = knn_numpy(host[sample], host, k=15,
+                                  metric="cosine", chunk=1024)
+            recall = recall_at_k(idx[sample], oracle, k=10)
+            check(launches > 0, "atlas_knn launched no knn_select kernel")
+            check(recall >= 0.99, f"atlas_knn recall@10 {recall} < 0.99")
+            info.update({"knn_select_launches": launches,
+                         "recall_at_10": recall})
+            atlas = {"x_pca": emb, "launches": launches}
+        kept[name] = (cells, genes, out)
+        runs.append(info)
+        emit({"phase": "recipes", "run": info["recipe"], "s": wall,
+              "peak_gb": peak})
+        del out
+        if name not in RECIPE_OPS.values():
+            kept.pop(name)
+
+    for op, name in RECIPE_OPS.items():
+        out, wall, peak = timed_run(lambda: apply(op, data, device=dev))
+        info = {"recipe": f"apply({op!r})", "s": wall, "peak_gb": peak,
+                "cells": out.n_cells, "genes": out.n_genes}
+        if op in SCALED:
+            info["scaled"] = scaled_moments(out.X, SCALED[op], op)
+        if "X_pca" in out.obsm:
+            pca_ok(out, op)
+        counts_layer_ok(out, csr, gene_pos, op)
+        cells = out.obs["cell_id"][: out.n_cells].cpu().numpy()
+        genes = genes_of(out)
+        if name is None:  # weinreb17 against the host's float64 filter
+            keep, mu, cv = weinreb_expected(csr)
+            diff = np.setxor1d(genes, np.flatnonzero(keep))
+            far = [int(g) for g in diff
+                   if abs(mu[g] - 0.01) > 1e-4 * 0.01
+                   and abs(cv[g] - 2.0) > 1e-4 * 2.0]
+            check(not far and len(cells) == raw.n_cells,
+                  f"{op}: genes {far[:10]} differ from the host filter "
+                  "away from its thresholds")
+            info["genes_vs_host"] = int(len(diff))
+        else:
+            p_cells, p_genes, p_out = kept.pop(name)
+            h = hvg[name]
+            n_top = HVG_PREFIX[name][2]
+            want_genes = expect[name][1]
+            check(np.array_equal(cells, p_cells),
+                  f"{op}: cells differ from recipe_pipeline({name!r})")
+            info["vs_pipeline"] = {"genes": hvg_diff(
+                np.searchsorted(want_genes, genes),
+                h["card_scores"], np.searchsorted(want_genes, p_genes),
+                h["card_scores"], n_top, f"{op} vs its pipeline",
+                noise=h["band"])}
+            if np.array_equal(genes, p_genes):
+                err = float((out.X - p_out.X).abs().max())
+                check(err <= 1e-4, f"{op}: X differs from its pipeline's "
+                                   f"by {err}")
+                info["vs_pipeline"]["max_abs_diff"] = err
+            del p_out
+        runs.append(info)
+        emit({"phase": "recipes", "run": info["recipe"], "s": wall,
+              "peak_gb": peak})
+        del out
+    check(torch.equal(data.X.indices, planes[0])
+          and torch.equal(data.X.data, planes[1]),
+          "a recipe wrote the raw counts in place")
+    del data, planes
+    emit({"phase": "recipes", "card": card, "cells": raw.n_cells,
+          "genes": raw.n_genes, "runs": runs,
+          "hvg": {k: v["summary"] for k, v in hvg.items()}})
+    return atlas
 
 
 # ----------------------------------------------------------------------
@@ -756,27 +1108,32 @@ NEAR_TIE = 1e-5  # relative distance of a near-tie to the cutoff score
 
 
 def hvg_diff(a_genes, a_scores, b_genes, b_scores, n_top: int,
-             what: str) -> int:
+             what: str, noise=None) -> int:
     """Size of the symmetric difference of two HVG sets; fails unless
     every gene in it lies within NEAR_TIE (relative) of the
-    ``n_top``-th score in both runs' scores."""
+    ``n_top``-th score in both runs' scores, or within ``noise`` (per
+    gene, or one value for all: for scores whose float32 ulps are
+    amplified, as in the dispersion flavors' bin statistics, how far
+    scores move between two runs)."""
     a_scores = np.asarray(a_scores, np.float64)
     b_scores = np.asarray(b_scores, np.float64)
+    noise = np.broadcast_to(0.0 if noise is None else noise,
+                            a_scores.shape)
     diff = np.setxor1d(np.asarray(a_genes), np.asarray(b_genes))
     cuts = [np.sort(s)[::-1][n_top - 1] for s in (a_scores, b_scores)]
     far = [int(g) for g in diff
-           if any(abs(s[g] - c) > NEAR_TIE * abs(c)
+           if any(abs(s[g] - c) > max(NEAR_TIE * abs(c), noise[g])
                   for s, c in zip((a_scores, b_scores), cuts))]
     check(not far, f"{what}: genes {far[:10]} differ beyond near-ties of "
                    f"the cutoff scores {cuts}")
     return int(len(diff))
 
 
-def hvg_repeat(ds) -> dict:
+def hvg_repeat(ds) -> tuple:
     """``hvg.select`` (seurat_v3, 2000) twice on the card and once on the
     CPU over one input: the main path's log1p output, copied to the
     host for the CPU run.  Each symmetric difference may hold near-ties
-    only."""
+    only.  Returns the summary and the CPU run's (genes, scores)."""
     import torch
 
     from sctools_tpu_torch import Pipeline, apply
@@ -799,7 +1156,7 @@ def hvg_repeat(ds) -> dict:
                                      "hvg.select, card run 1 vs 2"),
             "card_vs_cpu": hvg_diff(g1, s1, g3, s3, STREAM_TOP,
                                     "hvg.select, card vs CPU"),
-            "card_s": [t1, t2], "cpu_s": t3}
+            "card_s": [t1, t2], "cpu_s": t3}, (g3, s3)
 
 
 def store_phase(src, card: str) -> dict:
@@ -2192,7 +2549,8 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
 
 
 def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
-                  peaks: dict, stream: dict, mesh: dict) -> list:
+                  peaks: dict, stream: dict, mesh: dict,
+                  atlas: dict) -> list:
     import torch
 
     from sctools_tpu_torch import configure
@@ -2211,6 +2569,19 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
     out.append(kernel_case(
         f"{n}x{n}x50 k=15 float32, 1024 bins (binned path)", q, q, 15,
         "cosine", oracle, binned_launches, card, peaks, n_bins=1024))
+    del q
+
+    # the recipes phase's launches: atlas_knn's kNN (knn_multichip's
+    # ring on a one-card mesh) on that recipe's own embedding
+    emb = atlas["x_pca"]
+    host = emb.cpu().numpy()
+    orc, _ = knn_numpy(host[:N_COMPARE], host, k=15, metric="cosine",
+                       chunk=256)
+    q = _prep(emb, "cosine", torch.float32)
+    out.append(kernel_case(
+        f"{n}x{n}x50 k=15 float32 (atlas_knn recipe: knn_multichip ring, "
+        "one card)", q, q, 15, "cosine", orc, atlas["launches"], card,
+        peaks, plain_reps=1, library_reps=2, all_bins=False))
     del q
 
     pts, _ = gaussian_blobs(WIDE_CANDS, DIM, n_clusters=50, seed=0)
@@ -2283,6 +2654,7 @@ def main() -> int:
 
     card = card_phase()
     main_out = main_phase(card)
+    atlas = recipes_phase(main_out, card)
     binned_launches = binned_phase(main_out, card)
     graph = graph_phase(main_out["out"], card)
     meta = metacells_phase(main_out, card)
@@ -2297,7 +2669,7 @@ def main() -> int:
     graph_edges_phase()
     peaks = bounds_phase()
     kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks,
-                            stream, mesh)
+                            stream, mesh, atlas)
     kernels += graph_kernels_phase(graph, card, peaks)
     kernels += path_matvec_rows(meta, pal, card, peaks)
     kernels += diffuse_matvec_rows(mesh, card, peaks)

@@ -1,8 +1,9 @@
 """``CellData`` — the AnnData-shaped container the port's transforms
 operate on, with the fields of ``sctools_tpu/data/dataset.py``:
 
-    X      — counts: SparseCells (padded-ELL tensors) on a device, or a
-             scipy CSR matrix on the host
+    X      — counts: SparseCells (padded-ELL tensors) or a dense
+             (n_cells, n_genes) float32 tensor on a device, or a scipy
+             CSR matrix on the host
     obs    — per-cell annotations (dict of (n_cells,) arrays)
     var    — per-gene annotations (dict of (n_genes,) arrays)
     obsm   — per-cell matrices (e.g. "X_pca")
@@ -82,9 +83,9 @@ class CellData:
     # ------------------------------------------------------------------
     def to_device(self, device) -> "CellData":
         """Move to ``device``: a scipy CSR X (and layers) is packed to
-        ``SparseCells`` first; numeric arrays become tensors; strings
-        and objects stay on the host.  Data already there is not
-        copied."""
+        ``SparseCells`` first, a dense numpy X becomes a float32 tensor;
+        numeric arrays become tensors; strings and objects stay on the
+        host.  Data already there is not copied."""
         import scipy.sparse as sp
 
         device = torch.device(device)
@@ -94,7 +95,10 @@ class CellData:
                 return SparseCells.from_scipy_csr(v, device=device)
             if isinstance(v, SparseCells):
                 return v.to(device)
-            return put(v)
+            if isinstance(v, torch.Tensor):
+                return v.to(device)
+            return torch.from_numpy(
+                np.ascontiguousarray(v, dtype=np.float32)).to(device)
 
         def put(v):
             if isinstance(v, torch.Tensor):
@@ -142,13 +146,15 @@ class CellData:
         )
 
     def __getitem__(self, key) -> "CellData":
-        """Cell subset, AnnData-style: ``d[cells]`` or ``d[cells, :]``.
-        Selectors: a slice, a boolean mask (longer than ``n_cells`` on
-        the cell axis: per-cell tensors may carry padded rows, whose
-        entries are dropped), an int or an int array (negative ids count
-        from the end).  X, obs, obsm and every layer are gathered
-        consistently (``ops.qc.select_cells_device``); obsp is dropped.
-        The gene axis is not ported yet (ROADMAP.md Queue 1 item 2)."""
+        """AnnData-style subsetting: ``d[cells]``, ``d[:, genes]`` or
+        ``d[cells, genes]``.  Selectors: a slice, a boolean mask (longer
+        than ``n_cells`` on the cell axis: per-cell tensors may carry
+        padded rows, whose entries are dropped), an int or an int array
+        (negative ids count from the end), and on the gene axis gene
+        names matched against ``var["gene_name"]``.  X, obs/var,
+        obsm/varm and every layer are sliced consistently
+        (``ops.hvg.select_genes_device``, ``ops.qc.select_cells_device``);
+        obsp is dropped on a cell subset."""
         if isinstance(key, tuple):
             if len(key) > 2:
                 raise IndexError("CellData supports at most 2 axes")
@@ -156,17 +162,19 @@ class CellData:
             gkey = key[1] if len(key) > 1 else slice(None)
         else:
             ckey, gkey = key, slice(None)
-        if not (isinstance(gkey, slice) and gkey == slice(None)):
-            raise NotImplementedError(
-                "gene-axis subsetting of CellData is not ported yet "
-                "(ROADMAP.md Queue 1 item 2); hvg.select(subset=True) "
-                "subsets genes")
-        cidx = _cell_index(ckey, self.n_cells)
-        if cidx is None:
-            return self
-        from ..ops.qc import select_cells_device
+        gidx = _axis_index(gkey, self.n_genes, self.var.get("gene_name"),
+                           "gene")
+        cidx = _axis_index(ckey, self.n_cells, None, "cell")
+        out = self
+        if gidx is not None:
+            from ..ops.hvg import select_genes_device
 
-        return select_cells_device(self, cidx)
+            out = select_genes_device(out, gidx)
+        if cidx is not None:
+            from ..ops.qc import select_cells_device
+
+            out = select_cells_device(out, cidx)
+        return out
 
     def __repr__(self):
         def ks(d):
@@ -182,17 +190,16 @@ class CellData:
         )
 
 
-def _cell_index(key, n: int):
-    """Cell selector → int64 id array, or None for the full-axis no-op
-    (the cell-axis rules of ``sctools_tpu/data/dataset.py:
-    _normalize_axis_key``)."""
+def _axis_index(key, n: int, names, axis: str):
+    """Selector → int64 id array, or None for the full-axis no-op (the
+    rules of ``sctools_tpu/data/dataset.py:_normalize_axis_key``)."""
     if isinstance(key, slice):
         if key == slice(None):
             return None
         return np.arange(*key.indices(n))
     if isinstance(key, (int, np.integer)):
         if not -n <= key < n:
-            raise IndexError(f"cell index {key} out of range for {n}")
+            raise IndexError(f"{axis} index {key} out of range for {n}")
         return np.array([key % n])
     if isinstance(key, torch.Tensor):
         key = key.cpu().numpy()
@@ -200,16 +207,28 @@ def _cell_index(key, n: int):
     if arr.size == 0:
         return np.empty(0, np.int64)
     if arr.ndim != 1:
-        raise IndexError(f"cell selector must be 1-D, got shape {arr.shape}")
+        raise IndexError(
+            f"{axis} selector must be 1-D, got shape {arr.shape}")
     if arr.dtype.kind == "b":
-        if len(arr) < n:
+        # only the cell axis takes a longer mask (padded per-cell rows)
+        if len(arr) != n and not (axis == "cell" and len(arr) > n):
             raise IndexError(
-                f"boolean cell mask has length {len(arr)}, expected {n}")
+                f"boolean {axis} mask has length {len(arr)}, expected {n}")
         return np.nonzero(arr[:n])[0]
     if arr.dtype.kind in "iu":
         if arr.max() >= n or arr.min() < -n:
-            raise IndexError(f"cell indices out of range for {n}")
+            raise IndexError(f"{axis} indices out of range for {n}")
         return arr.astype(np.int64) % n
-    raise TypeError(
-        f"unsupported cell selector of dtype {arr.dtype} (select cells "
-        "by slice, mask or index)")
+    if arr.dtype.kind in "US":
+        if names is None:
+            raise KeyError(
+                "name-based selection is only supported on the gene axis "
+                "(via var['gene_name']); select cells by mask or index "
+                "instead" if axis == "cell" else
+                "gene-name selection needs var['gene_name']")
+        pos = {g: i for i, g in enumerate(np.asarray(names).astype(str))}
+        missing = [g for g in arr.astype(str) if g not in pos]
+        if missing:
+            raise KeyError(f"unknown {axis} names: {missing[:5]}")
+        return np.array([pos[g] for g in arr.astype(str)], np.int64)
+    raise TypeError(f"unsupported {axis} selector of dtype {arr.dtype}")

@@ -546,15 +546,6 @@ def _shard_clipped_ssq(x: SparseCells, mu_over_std, inv_std,
     return segment_reduce(x, slot_vals, 1)[:, 0]
 
 
-def _pearson_zero_chunk(totals_block, p_chunk, theta: float, clip: float):
-    """Residual sums of the zero entries of a (cells × gene chunk) tile:
-    the residual at x = 0 depends only on the cell total."""
-    mu = totals_block[:, None] * p_chunk[None, :]
-    denom = torch.clamp(torch.sqrt(mu + mu * mu / theta), min=1e-12)
-    r0 = torch.clamp(-mu / denom, -clip, clip)
-    return r0.sum(dim=0), (r0 * r0).sum(dim=0)
-
-
 def _shard_pearson_corr(x: SparseCells, p_pad, theta: float,
                         clip: float) -> torch.Tensor:
     """Stored-entry corrections (r − r0, r² − r0²) per gene of a shard;
@@ -633,8 +624,8 @@ def stream_hvg_scores(stats: dict, flavor: str = "seurat_v3", src=None,
             tb = torch.from_numpy(
                 totals_all[c0:c0 + cblock].astype(np.float32)).to(dev)
             for lo in range(0, G, gchunk):
-                s0, q0 = _pearson_zero_chunk(tb, p_dev[lo:lo + gchunk],
-                                             theta, clip)
+                s0, q0 = hvg._pearson_zero_chunk(
+                    tb, p_dev[lo:lo + gchunk], theta, clip)
                 hi = min(G, lo + gchunk)
                 S[lo:hi] += s0.cpu().numpy()[: hi - lo]
                 Q[lo:hi] += q0.cpu().numpy()[: hi - lo]

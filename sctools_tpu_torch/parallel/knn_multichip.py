@@ -134,16 +134,21 @@ def knn_multichip(data: CellData, k: int = 15, metric: str = "cosine",
                   strategy: str = "ring", mesh=None,
                   device=None) -> CellData:
     """Multi-device kNN over ``mesh`` (default: ``make_mesh(n_devices)``,
-    every CUDA device).  Adds the obsp and uns fields of
+    every CUDA device; on a CPU ``device``, ``n_devices`` (1) shards of
+    the CPU).  Adds the obsp and uns fields of
     ``neighbors.knn``, with the rows padded as
     :func:`knn_multichip_arrays` pads them; the result lies on
     ``device`` (``None``: the card, raising without one)."""
     from ..ops.graph import invalidate_graph_layout_stats
 
-    data = data.to_device(resolve_device(device))
+    dev = resolve_device(device)
+    data = data.to_device(dev)
     rep = _get_rep(data, use_rep)
+    if mesh is None:
+        mesh = (make_mesh(devices=["cpu"] * (n_devices or 1))
+                if dev.type == "cpu" else make_mesh(n_devices))
     idx, dist = knn_multichip_arrays(
-        rep, k=k, metric=metric, mesh=mesh or make_mesh(n_devices),
+        rep, k=k, metric=metric, mesh=mesh,
         n_valid=data.n_cells, block=block, exclude_self=exclude_self,
         strategy=strategy)
     data = invalidate_graph_layout_stats(data)

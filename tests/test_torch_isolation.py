@@ -190,9 +190,14 @@ def test_registry_is_separate_from_the_reference():
         "graph.diffusion_operator", "graph.jaccard", "graph.reorder",
         "graph.restore_order", "hvg.select", "impute.magic",
         "metacells.aggregate", "metacells.seacells", "neighbors.bbknn",
-        "neighbors.knn", "neighbors.knn_multichip",
-        "normalize.library_size", "normalize.log1p", "palantir.run",
-        "pca.randomized", "qc.per_cell_metrics"]
+        "neighbors.knn", "neighbors.knn_multichip", "normalize.clr",
+        "normalize.downsample_counts", "normalize.library_size",
+        "normalize.log1p", "normalize.pearson_residuals",
+        "normalize.regress_out", "normalize.scale", "palantir.run",
+        "pca.exact", "pca.randomized", "qc.filter_cells",
+        "qc.filter_genes", "qc.per_cell_metrics", "qc.per_gene_metrics",
+        "qc.subsample", "recipe.pearson_residuals", "recipe.seurat",
+        "recipe.weinreb17", "recipe.zheng17", "util.snapshot_layer"]
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     meta = sctt.registry.metadata("neighbors.knn_multichip")
     assert meta["sharding"] == "cells" and meta["collective"] is True

@@ -109,7 +109,7 @@ def test_hvg_subset_compacts_like_the_reference(both):
 
 def test_hvg_unported_options_raise(both):
     _, port = both
-    with pytest.raises(NotImplementedError):
-        apply("hvg.select", port, device="cpu", flavor="cell_ranger")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown hvg flavor"):
+        apply("hvg.select", port, device="cpu", flavor="loess")
+    with pytest.raises(KeyError, match="no 'b'"):
         apply("hvg.select", port, device="cpu", batch_key="b")

@@ -22,7 +22,10 @@ that only the Palantir stages are compared.  Tolerances:
   ``torch.nanmedian`` would not);
 * ``stationary_arrays`` within 1e-5 of the largest mass (100 power steps
   summed in another order);
-* ``fate_probs_arrays`` with fixed terminal states within 1e-4;
+* ``fate_probs_arrays`` with fixed terminal states within 1e-4, and at
+  a 3,000-cell fixture its step count equal to that of a copy of the
+  reference's loop with a counter (the reference returns B alone), at
+  tol 1e-6 (both run to the 5,000-step cap) and 2e-4 (both stop on it);
 * ``palantir.run``: the same terminal states, pseudotime within 1e-4,
   fate probabilities within 1e-3."""
 
@@ -286,3 +289,77 @@ def test_palantir_warns_on_cells_unreachable_from_the_root(branching):
     assert any("unreachable" in str(w.message) for w in caught)
     np.testing.assert_array_equal(out.uns["palantir_terminal_states"],
                                   ref.uns["palantir_terminal_states"])
+
+
+def _ref_fate_loop_with_steps(knn_idx, p_edges, onehot, is_terminal,
+                              n_iter: int = 5000, tol: float = 1e-6):
+    """A copy of the reference's fate loop
+    (``sctools_tpu/ops/palantir.py:fate_probs_arrays``) that also
+    returns its step count: the reference returns B alone."""
+    from sctools_tpu.ops.graph import knn_matvec
+
+    self_mass = 1.0 - jnp.sum(jnp.where(knn_idx < 0, 0.0, p_edges), axis=1)
+    B0 = onehot.astype(jnp.float32)
+
+    def cond(carry):
+        _, i, delta = carry
+        return (i < n_iter) & (delta > tol)
+
+    def step(carry):
+        B, i, _ = carry
+        Bn = knn_matvec(knn_idx, p_edges, B) + self_mass[:, None] * B
+        Bn = jnp.where(is_terminal[:, None], onehot, Bn)
+        return Bn, i + 1, jnp.max(jnp.abs(Bn - B))
+
+    B, steps, _ = jax.jit(lambda: jax.lax.while_loop(
+        cond, step, (B0, jnp.int32(0), jnp.float32(jnp.inf))))()
+    return np.asarray(B), int(steps)
+
+
+@pytest.fixture(scope="module")
+def mid_chain():
+    """The reference's directed chain on a 3,000-cell branching fixture,
+    with the two branch tips as terminal states."""
+    pts, t, branch = _branching_data(n=3000, seed=1)
+    ds = sct.CellData(pts, obsm={"X_pca": pts})
+    ds = sct.apply("neighbors.knn", ds, backend="tpu", k=15,
+                   metric="euclidean")
+    ds = sct.apply("embed.spectral", ds, backend="tpu")
+    n = len(t)
+    idx = np.array(ds.obsp["knn_indices"])[:n]
+    ms = ref_pal.multiscale_space(np.asarray(ds.uns["diffmap_evals"]),
+                                  np.asarray(ds.obsm["X_diffmap"])[:n])
+    root = int(np.argmin(t))
+    d = np.asarray(ref_pal.shortest_path_arrays(
+        jnp.asarray(idx), jnp.asarray(ref_pal._edge_lengths(idx, ms)),
+        root))
+    pt = (d / d[np.isfinite(d)].max()).astype(np.float32)
+    p_ref = np.array(ref_pal.directed_chain_arrays(
+        jnp.asarray(idx), jnp.asarray(ms), jnp.asarray(pt)))
+    tips = [int(np.argmax(np.where(branch == b, t, -1))) for b in (1, 2)]
+    onehot = np.zeros((n, 2), np.float32)
+    onehot[tips, [0, 1]] = 1.0
+    is_term = np.zeros(n, bool)
+    is_term[tips] = True
+    return idx, p_ref, onehot, is_term
+
+
+@pytest.mark.parametrize("tol, stop", [(1e-6, "cap"), (2e-4, "tol")])
+def test_fate_loop_stops_at_the_reference_step(mid_chain, tol, stop):
+    """At a mid-size fixture (3,000 cells) the port's fate loop takes the
+    reference's number of steps and reaches its B: at the default tol
+    both run to the 5,000-step cap (as at 68,579 cells on the card), at
+    a looser tol both stop on it."""
+    idx, p_ref, onehot, is_term = mid_chain
+    args = [jnp.asarray(a) for a in (idx, p_ref, onehot, is_term)]
+    ref_B, ref_steps = _ref_fate_loop_with_steps(*args, tol=tol)
+    np.testing.assert_array_equal(  # the copy is the reference's loop
+        ref_B, np.asarray(ref_pal.fate_probs_arrays(*args, tol=tol)))
+    B, steps = port_pal.fate_probs_arrays(
+        *[torch.from_numpy(a) for a in (idx, p_ref, onehot, is_term)],
+        tol=tol)
+    print(f"fate loop at tol {tol}: reference {ref_steps} steps, port "
+          f"{steps}")
+    assert (ref_steps == 5000) == (stop == "cap")
+    assert steps == ref_steps
+    np.testing.assert_allclose(B.numpy(), ref_B, atol=1e-4, rtol=0)
