@@ -70,6 +70,19 @@ Phases, each printing one JSON line, each fatal on a failed check:
              ``palantir.run(root=0)`` (rmatvec 100, one matvec per fate
              iteration): pseudotime in [0, 1], fate rows summing to 1,
              finite entropy, at least one terminal state;
+6b. cluster — ``cluster.leiden``, ``louvain``, ``leiden_like``,
+             ``phenograph``, ``kmeans`` (10 clusters), ``dendrogram``
+             and ``graph.paga`` (over leiden's labels) on the main
+             path's output with the port's connectivities, each twice
+             on the card: labels and uns bit for bit between the runs,
+             on the card; wall, peak memory, communities, modularity and
+             ARI against the synthetic clusters; graph_jaccard launched
+             once a phenograph run.  The port on the CPU on the same
+             inputs (leiden_like, phenograph, kmeans, dendrogram and PAGA
+             at full width; leiden and louvain on the kNN graph of the
+             first 16,384 cells, rebuilt on the card): labels equal or
+             ARI ≥ 0.99 with |ΔQ| ≤ 1e-4 (flipped nodes printed);
+             dendrogram and PAGA bit for bit;
 7. neighbors — the rest of the kNN surface on the main path's embedding
              (68,579 × 50, k=15): ``knn_impl="xla"`` under both
              ``knn_coarse`` with refine 0 and 32 (``knn_refine_mode``
@@ -965,6 +978,305 @@ def palantir_phase(main: dict, card: str) -> dict:
     return {"launches": launches["rmatvec"], "idx": idx,
             "spectral": (s_edges, v0, spectral_matvec),
             "fate": (p, fate.contiguous(), launches["fate_matvec"])}
+
+
+# ----------------------------------------------------------------------
+# 6b. cluster
+# ----------------------------------------------------------------------
+
+KMEANS_K = 10  # the synthetic clusters of the main path's counts
+SUB_CELLS = 16_384  # cells of the leiden/louvain card-against-CPU graph
+# (op, parameters, obs key of its labels); dendrogram and paga read the
+# labels of cluster.leiden, their default groups
+CLUSTER_OPS = [("cluster.leiden", {}, "leiden"),
+               ("cluster.louvain", {}, "louvain"),
+               ("cluster.leiden_like", {}, "leiden_like"),
+               ("cluster.phenograph", {}, "phenograph"),
+               ("cluster.kmeans", {"n_clusters": KMEANS_K}, "kmeans"),
+               ("cluster.dendrogram", {}, None),
+               ("graph.paga", {}, None)]
+CPU_FULL = ("cluster.leiden_like", "cluster.phenograph", "cluster.kmeans",
+            "cluster.dendrogram", "graph.paga")
+ARI_MIN, DQ_MAX = 0.99, 1e-4  # where two runs' labels differ
+# functions of ops/cluster.py whose cumulative time a profiled run reads
+# (moves on the device end in host reads, so their time includes the
+# device's; the coarse merge's moves count in _modularity_merge too)
+CLUSTER_PARTS = ("_symmetrize_knn", "label_propagation_arrays",
+                 "louvain_moves_arrays", "_modularity_merge", "_coarse_ell",
+                 "modularity")
+
+
+def cluster_breakdown(fn) -> dict:
+    """{function: [calls, cumulative s]} of ``CLUSTER_PARTS`` in one
+    call of ``fn`` under cProfile, and the call's wall."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    sync()
+    prof.disable()
+    out = {"wall_s": time.perf_counter() - t0}
+    for (path, _, name), (_, calls, _, cum, _) in \
+            pstats.Stats(prof).stats.items():
+        if path.endswith("cluster.py") and name in CLUSTER_PARTS:
+            out[name] = [calls, cum]
+    return out
+
+
+def with_coarse_count(fn):
+    """``fn()`` and how many graphs it aggregated for
+    ``_modularity_merge``'s coarse branch (calls of ``_coarse_ell``,
+    which that branch alone makes): 0 means only the dense matching
+    merge ran."""
+    from sctools_tpu_torch.ops import cluster as C
+
+    orig, calls = C._coarse_ell, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    C._coarse_ell = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        C._coarse_ell = orig
+
+
+def same_bits(a, b) -> bool:
+    """Two results equal bit for bit: tensors, arrays, dicts, lists and
+    scalars."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(same_bits(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(same_bits(x, y) for x, y in zip(a, b)))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def op_result(out, op: str, key: str | None) -> dict:
+    """What ``op`` wrote: its labels and its uns entries."""
+    if key is not None:
+        res = {"labels": out.obs[key][: out.n_cells]}
+        res.update({k: v for k, v in out.uns.items()
+                    if k.startswith(key + "_")})
+        return res
+    prefix = "dendrogram_" if op == "cluster.dendrogram" else "paga_"
+    return {k: v for k, v in out.uns.items() if k.startswith(prefix)}
+
+
+def labels_agree(a, b, idx2, w2, what: str) -> dict:
+    """Two label vectors: equal, or ARI ≥ 0.99 and |ΔQ| ≤ 1e-4 with the
+    flipped nodes counted (each node whose community, matched to the
+    other run's by most shared nodes, differs)."""
+    from sctools_tpu_torch.ops.cluster import adjusted_rand_index, modularity
+
+    a, b = np.asarray(a), np.asarray(b)
+    if np.array_equal(a, b):
+        return {"equal": True, "flipped": 0}
+    ari = adjusted_rand_index(a, b)
+    dq = abs(modularity(idx2, w2, a) - modularity(idx2, w2, b))
+    tab = {}
+    for x, y in zip(a.tolist(), b.tolist()):
+        tab[(x, y)] = tab.get((x, y), 0) + 1
+    best = {}
+    for (x, y), c in tab.items():
+        if c > best.get(x, (0, None))[0]:
+            best[x] = (c, y)
+    flipped = int(sum(best[x][1] != y for x, y in zip(a.tolist(),
+                                                       b.tolist())))
+    check(ari >= ARI_MIN and dq <= DQ_MAX,
+          f"{what}: labels differ with ARI {ari} (< {ARI_MIN}?) or |ΔQ| "
+          f"{dq} (> {DQ_MAX}?), {flipped} nodes flipped")
+    return {"equal": False, "ari": ari, "abs_dq": dq, "flipped": flipped}
+
+
+def cluster_phase(main: dict, card: str) -> dict:
+    """The seven clustering ops on the main path's output (68,579 × 50
+    X_pca, k = 15) with ``graph.connectivities`` from the port, each at
+    the reference's defaults (``cluster.kmeans`` at 10 clusters;
+    dendrogram and PAGA over ``cluster.leiden``'s labels), each twice
+    on the card: the two runs must give the same labels and uns bit for
+    bit, on the card.  Each run's wall and peak memory; for each labelling
+    its communities, modularity Q on the symmetrised graph and ARI
+    against the synthetic clusters.  ``cluster.phenograph`` must launch
+    ``graph_jaccard`` (no ``jaccard`` in obsp).  Then the port on the
+    CPU on the same inputs: leiden_like, phenograph, kmeans, dendrogram
+    and PAGA at full width, leiden and louvain on the kNN graph of the
+    first 16,384 cells rebuilt on the card; labels equal, or ARI ≥ 0.99
+    and |ΔQ| ≤ 1e-4 with the flipped nodes printed; dendrogram and PAGA
+    bit for bit.  Every compared run prints ``coarse_merges`` (card,
+    CPU): the graphs ``_modularity_merge``'s coarse branch aggregated.
+    That branch is also compared on its own at full width: leiden's
+    first level of moves on the card, then the merge on each device."""
+    import torch
+
+    from sctools_tpu_torch import apply
+    from sctools_tpu_torch.ops import graph_kernels as GK
+    from sctools_tpu_torch.ops.cluster import (_modularity_merge,
+                                               _symmetrize_knn,
+                                               adjusted_rand_index,
+                                               louvain_moves_arrays,
+                                               modularity)
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    out = main["out"]
+    n = out.n_cells
+    base = out.replace(obsp={k: out.obsp[k]
+                             for k in ("knn_indices", "knn_distances")})
+    base = apply("graph.connectivities", base, device=dev)
+    truth = out.obs["cluster_true"][:n].cpu().numpy()
+    idx_h = base.obsp["knn_indices"][:n].cpu().numpy()
+    w_h = base.obsp["connectivities"][:n].cpu().numpy()
+    idx2, w2 = _symmetrize_knn(idx_h, w_h.astype(np.float64))
+
+    data, card_res, card_coarse, runs = base, {}, {}, []
+    jaccard_launches = 0
+    for op, kw, key in CLUSTER_OPS:
+        res = []
+        for rep in range(2):
+            GK.jaccard.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            sync()
+            t0 = time.perf_counter()
+            r, coarse = with_coarse_count(
+                lambda: apply(op, data, device=dev, **kw))
+            sync()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            res.append((r, op_result(r, op, key), wall, peak,
+                        GK.jaccard.launches, coarse))
+        check(same_bits(res[0][1], res[1][1]),
+              f"{op}: two runs on the card differ")
+        row = {"op": op, "wall_s": [res[0][2], res[1][2]],
+               "peak_gb": [res[0][3], res[1][3]], "bitwise_repeat": True,
+               "coarse_merges": [res[0][5], res[1][5]]}
+        if op == "cluster.phenograph":
+            launches = [x[4] for x in res]
+            check(launches == [1, 1],
+                  f"cluster.phenograph launched graph_jaccard {launches} "
+                  "times, expected once a run")
+            jaccard_launches = launches[0]
+            row["graph_jaccard_launches"] = launches
+        if key is not None:
+            lab_t = res[0][1]["labels"]
+            check(lab_t.device.type == dev.type,
+                  f"{op}: labels on {lab_t.device}, not {dev}")
+            lab = lab_t.cpu().numpy()
+            row.update(communities=int(len(np.unique(lab))),
+                       modularity=modularity(idx2, w2, lab),
+                       ari_truth=adjusted_rand_index(lab, truth))
+            if key + "_modularity" in res[0][1]:
+                row["uns_modularity"] = float(res[0][1][key + "_modularity"])
+        runs.append(row)
+        card_res[op] = res[0][1]
+        card_coarse[op] = res[0][5]
+        if op == "cluster.leiden":
+            data = res[0][0]  # obs["leiden"] for dendrogram and paga
+        del res
+    check(card_res["cluster.dendrogram"]["dendrogram_leiden"][
+        "correlation_matrix"].shape[0] == runs[0]["communities"],
+        "dendrogram groups are not leiden's communities")
+    breakdown = {op: cluster_breakdown(lambda: apply(op, base, device=dev))
+                 for op in ("cluster.leiden", "cluster.leiden_like",
+                            "cluster.phenograph")}
+
+    # the port on the CPU, same inputs
+    t0 = time.perf_counter()
+    host = data.to_device("cpu")
+    cpu_rows = []
+    for op, kw, key in CLUSTER_OPS:
+        if op not in CPU_FULL:
+            continue
+        t1 = time.perf_counter()
+        r, coarse = with_coarse_count(
+            lambda: apply(op, host, device="cpu", **kw))
+        r = op_result(r, op, key)
+        row = {"op": op, "cells": n, "cpu_s": time.perf_counter() - t1,
+               "coarse_merges": [card_coarse[op], coarse]}
+        if key is None:
+            check(same_bits(r, card_res[op]),
+                  f"{op}: the CPU result differs from the card's")
+            row["bitwise"] = True
+        else:
+            row.update(labels_agree(card_res[op]["labels"].cpu(),
+                                    r["labels"], idx2, w2,
+                                    f"{op} card against CPU"))
+            if op == "cluster.kmeans":
+                row["centroid_max_abs_err"] = float(
+                    (card_res[op]["kmeans_centroids"].cpu()
+                     - r["kmeans_centroids"]).abs().max())
+        cpu_rows.append(row)
+    del host
+
+    # the coarse branch at full width: leiden's first level of moves on
+    # the card, then _modularity_merge on the card and on the CPU
+    first = louvain_moves_arrays(
+        torch.from_numpy(idx2).to(dev), torch.from_numpy(w2).to(dev),
+        torch.arange(n, dtype=torch.int32, device=dev)).cpu().numpy()
+    t1 = time.perf_counter()
+    m_card, c_card = with_coarse_count(
+        lambda: _modularity_merge(first, idx2, w2, device=dev))
+    card_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    m_cpu, c_cpu = with_coarse_count(
+        lambda: _modularity_merge(first, idx2, w2, device="cpu"))
+    row = {"op": "_modularity_merge of leiden's first level", "cells": n,
+           "first_level_communities": int(len(np.unique(first))),
+           "card_s": card_s, "cpu_s": time.perf_counter() - t1,
+           "coarse_merges": [c_card, c_cpu],
+           "communities": int(len(np.unique(m_card)))}
+    row.update(labels_agree(m_card, m_cpu, idx2, w2,
+                            "coarse merge card against CPU"))
+    cpu_rows.append(row)
+
+    # leiden and louvain on the kNN graph of the first SUB_CELLS cells
+    from sctools_tpu_torch import CellData
+
+    emb = out.obsm["X_pca"][:SUB_CELLS]
+    sub = CellData(emb, obsm={"X_pca": emb})
+    sub = apply("neighbors.knn", sub, device=dev, k=15)
+    sub = apply("graph.connectivities", sub, device=dev)
+    s_idx = sub.obsp["knn_indices"][:SUB_CELLS].cpu().numpy()
+    s_w = sub.obsp["connectivities"][:SUB_CELLS].cpu().numpy()
+    s_idx2, s_w2 = _symmetrize_knn(s_idx, s_w.astype(np.float64))
+    sub_host = sub.to_device("cpu")
+    for op, _, key in CLUSTER_OPS[:2]:
+        t1 = time.perf_counter()
+        a, c_card = with_coarse_count(lambda: apply(op, sub, device=dev))
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        b, c_cpu = with_coarse_count(
+            lambda: apply(op, sub_host, device="cpu"))
+        row = {"op": op, "cells": SUB_CELLS, "card_s": card_s,
+               "cpu_s": time.perf_counter() - t1,
+               "coarse_merges": [c_card, c_cpu],
+               "communities": int(len(np.unique(
+                   a.obs[key].cpu().numpy())))}
+        row.update(labels_agree(a.obs[key].cpu(), b.obs[key], s_idx2, s_w2,
+                                f"{op} card against CPU ({SUB_CELLS} "
+                                "cells)"))
+        row["uns_modularity"] = [float(a.uns[key + "_modularity"]),
+                                 float(b.uns[key + "_modularity"])]
+        cpu_rows.append(row)
+    compare_s = time.perf_counter() - t0
+    emit({"phase": "cluster", "card": card, "cells": n,
+          "k": int(idx_h.shape[1]), "symmetrized_cap": int(idx2.shape[1]),
+          "runs": runs, "breakdown": breakdown, "cpu_compare": cpu_rows,
+          "compare_s": compare_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"jaccard_launches": jaccard_launches}
 
 
 # ----------------------------------------------------------------------
@@ -2455,10 +2767,13 @@ def matvec_row(idx, w, x, launches: int, what: str, card: str,
         "column_slices_bitwise": slices, "card": card, **extra}
 
 
-def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
+def graph_kernels_phase(graph: dict, cluster: dict, card: str,
+                        peaks: dict) -> list:
     """The three graph kernels against their plain versions at the
     graph phase's shapes, in the RCM layout the path runs them in
-    (``ms``; ``ms_natural`` in the caller's order), with times."""
+    (``ms``; ``ms_natural`` in the caller's order), with times.
+    graph_jaccard's launches are the graph path's and
+    ``cluster.phenograph``'s (phase cluster, one run)."""
     import torch
 
     from sctools_tpu_torch.ops import graph as G
@@ -2504,7 +2819,11 @@ def graph_kernels_phase(graph: dict, card: str, peaks: dict) -> list:
         "name": "graph_jaccard",
         "source": "sctools_tpu_torch/csrc/graph_jaccard.cu",
         "replaces": "sctools_tpu/ops/pallas_graph.py:432",
-        "shape": f"{n}x{k} int32", "launches": launches["jaccard"],
+        "shape": f"{n}x{k} int32",
+        "launches": launches["jaccard"] + cluster["jaccard_launches"],
+        "launches_by_path": {"graph_tail": launches["jaccard"],
+                             "cluster.phenograph":
+                                 cluster["jaccard_launches"]},
         "max_abs_err": 0.0, "ms": ms, "ms_natural": ms_nat,
         "device_us": device, "device_launches_recorded": recorded,
         "device_us_late": device_late,
@@ -2660,6 +2979,7 @@ def main() -> int:
     meta = metacells_phase(main_out, card)
     pal = palantir_phase(main_out, card)
     neighbors_phase(main_out, card)
+    cluster = cluster_phase(main_out, card)
     x_pca, launches = main_out["x_pca"], main_out["launches"]
     del main_out
     stream = stream_phase(card)
@@ -2670,7 +2990,7 @@ def main() -> int:
     peaks = bounds_phase()
     kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks,
                             stream, mesh, atlas)
-    kernels += graph_kernels_phase(graph, card, peaks)
+    kernels += graph_kernels_phase(graph, cluster, card, peaks)
     kernels += path_matvec_rows(meta, pal, card, peaks)
     kernels += diffuse_matvec_rows(mesh, card, peaks)
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)

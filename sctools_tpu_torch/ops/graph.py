@@ -1,8 +1,8 @@
 """Neighbour-graph ops of the post-kNN tail: ``graph.connectivities``,
 ``graph.jaccard``, ``graph.diffusion_operator``, ``impute.magic``, the
 diffusion map ``embed.spectral`` (alias ``embed.diffmap``),
-``dpt.pseudotime`` and the locality pass ``graph.reorder`` /
-``graph.restore_order``.
+``dpt.pseudotime``, the partition-based graph abstraction ``graph.paga``
+and the locality pass ``graph.reorder`` / ``graph.restore_order``.
 
 Counterpart of ``sctools_tpu/ops/graph.py``.  The kNN graph stays in
 its padded (n, k) edge-list form, as ``neighbors.knn`` produces it;
@@ -10,10 +10,11 @@ per-edge work is plain torch, and the gathers along the k axis that
 dominate (the diffusion steps of MAGIC, Jaccard) go through the
 kernels of ``graph_kernels``.  The RCM permutation is a host pass on
 scipy, as in the reference; the permutation itself is applied on the
-device.  The ``uns`` keys are the reference's.
+device.  PAGA's group statistics are host numpy over the graph, as in
+the reference.  The ``uns`` keys are the reference's.
 
-Not ported yet (ROADMAP.md Queue 1 item 10): ``graph.paga`` and the
-reference's telemetry gauges and counters.
+Not ported yet (ROADMAP.md Queue 1 item 10): the reference's telemetry
+gauges and counters.
 """
 
 from __future__ import annotations
@@ -379,6 +380,79 @@ def dpt(data: CellData, root: int = 0, device=None) -> CellData:
     d = torch.linalg.vector_norm(Z - Z[root], dim=1)
     d = d / torch.clamp(d.max(), min=1e-12)
     return data.with_obs(dpt_pseudotime=d).with_uns(dpt_root=root)
+
+
+# ----------------------------------------------------------------------
+# graph.paga — partition-based graph abstraction
+# ----------------------------------------------------------------------
+
+
+def _paga_stats(idx, w, labels, n_groups):
+    """Inter-group connectivity statistics on the weighted kNN edge list
+    (host numpy; the group graph is tiny).  theta follows scanpy's
+    ``tl.paga`` v1.2: the symmetrised inter-group edge weight over its
+    random-wiring expectation ``(es_i·n_j + es_j·n_i)/(n−1)`` (``es_g``
+    the edge weight incident to group g, ``n_g`` its size), clipped to
+    [0, 1].  Returns (C, expected, theta float32)."""
+    import scipy.sparse as sp
+
+    n, k = idx.shape
+    rows = np.repeat(labels, k)
+    cols = idx.reshape(-1)
+    wf = np.asarray(w, np.float64).reshape(-1)
+    # self-edges carry no inter-group information and would inflate es
+    keep = (cols >= 0) & (wf > 0) & (cols != np.repeat(np.arange(n), k))
+    lj = labels[np.clip(cols, 0, n - 1)]
+    W = sp.coo_matrix((wf[keep], (rows[keep], lj[keep])),
+                      shape=(n_groups, n_groups)).toarray()
+    C = W + W.T  # symmetrised inter-group weight
+    np.fill_diagonal(C, 0.0)
+    sizes = np.bincount(labels, minlength=n_groups).astype(np.float64)
+    es = W.sum(axis=1) + W.sum(axis=0)  # total incident weight per group
+    expected = (np.outer(es, sizes) + np.outer(sizes, es)) / max(n - 1, 1)
+    np.fill_diagonal(expected, 1.0)
+    theta = np.clip(C / np.maximum(expected, 1e-12), 0.0, 1.0)
+    np.fill_diagonal(theta, 0.0)
+    return C, expected, theta.astype(np.float32)
+
+
+@register("graph.paga")
+def paga(data: CellData, groups: str = "leiden", device=None) -> CellData:
+    """PAGA (partition-based graph abstraction): the cluster-level
+    connectivity map of ``obs[groups]`` over the kNN graph
+    (``_paga_stats``), weighted by obsp ``connectivities`` when its
+    shape matches the graph's (a stale one warns and unit weights are
+    used).  Adds uns ``paga_connectivities`` (G × G float32),
+    ``paga_edge_weights``, ``paga_groups`` and ``paga_groups_key``."""
+    data = data.to_device(resolve_device(device))
+    if groups not in data.obs:
+        raise KeyError(
+            f"obs has no {groups!r} — run cluster.leiden (or another "
+            "clustering) first")
+    idx, _ = _require_knn(data)
+    n = data.n_cells
+    idx = _host(idx)
+    w = None
+    if "connectivities" in data.obsp:
+        cand = _host(data.obsp["connectivities"]).astype(np.float64)[:n]
+        if cand.shape == idx.shape:
+            w = cand
+        else:
+            warnings.warn(
+                "graph.paga: obsp['connectivities'] shape "
+                f"{cand.shape} does not match the current kNN graph "
+                f"{idx.shape} (stale after a kNN rebuild?) — using "
+                "unit edge weights", stacklevel=3)
+    if w is None:
+        w = np.ones_like(idx, np.float64)
+    labels = _host(data.obs[groups])[:n]
+    uniq, codes = np.unique(labels, return_inverse=True)
+    C, _, theta = _paga_stats(idx, w, codes.astype(np.int64), len(uniq))
+    return data.with_uns(
+        paga_connectivities=theta,
+        paga_edge_weights=C.astype(np.float32),
+        paga_groups=uniq,
+        paga_groups_key=groups)
 
 
 # ----------------------------------------------------------------------

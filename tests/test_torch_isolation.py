@@ -146,7 +146,9 @@ def test_graph_kernel_wrapper_has_no_exception_handler(name):
     "graph.connectivities", "graph.jaccard", "graph.diffusion_operator",
     "impute.magic", "graph.reorder", "graph.restore_order", "embed.tsne",
     "embed.spectral", "embed.diffmap", "dpt.pseudotime", "palantir.run",
-    "metacells.seacells", "metacells.aggregate"])
+    "metacells.seacells", "metacells.aggregate", "cluster.leiden",
+    "cluster.louvain", "cluster.leiden_like", "cluster.phenograph",
+    "cluster.kmeans", "cluster.dendrogram", "graph.paga"])
 def test_graph_ops_default_to_the_card_and_raise_without_one(op):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None resolves to it")
@@ -185,10 +187,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_registry_is_separate_from_the_reference():
     assert sctt.names() == [
+        "cluster.dendrogram", "cluster.kmeans", "cluster.leiden",
+        "cluster.leiden_like", "cluster.louvain", "cluster.phenograph",
         "distance.pairwise", "dpt.pseudotime", "embed.diffmap",
         "embed.spectral", "embed.tsne", "graph.connectivities",
-        "graph.diffusion_operator", "graph.jaccard", "graph.reorder",
-        "graph.restore_order", "hvg.select", "impute.magic",
+        "graph.diffusion_operator", "graph.jaccard", "graph.paga",
+        "graph.reorder", "graph.restore_order", "hvg.select",
+        "impute.magic",
         "metacells.aggregate", "metacells.seacells", "neighbors.bbknn",
         "neighbors.knn", "neighbors.knn_multichip", "normalize.clr",
         "normalize.downsample_counts", "normalize.library_size",
