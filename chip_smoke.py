@@ -83,6 +83,32 @@ Phases, each printing one JSON line, each fatal on a failed check:
              first 16,384 cells, rebuilt on the card): labels equal or
              ARI ≥ 0.99 with |ΔQ| ≤ 1e-4 (flipped nodes printed);
              dendrogram and PAGA bit for bit;
+6c. layouts — ``embed.umap`` (200 epochs), ``embed.force_directed``
+             (300) and ``embed.draw_graph`` on the graph phase's output
+             (68,579 cells, k=15), each layout twice on the card: both
+             runs bit for bit, draw_graph bit for bit force_directed,
+             finite (n, 2) layouts, 15-NN label purity ≥ 0.85 × (UMAP)
+             and ≥ 0.65 × (ForceAtlas2) the kNN graph's, graph_matvec 61
+             times a spectral start; each optimiser on the card against
+             the CPU from one start and one draw of negatives after 1
+             and 10 epochs (``LAYOUT_CPU_TOL``); walls, peak memory;
+6d. velocity — scVelo's workflow on a seeded stand-in
+             (``velocity_standin``: 68,579 cells × 2,000 genes, a trunk
+             splitting into two arms, splicing-ODE Poisson counts):
+             library size → log1p → 30-PC PCA → kNN (k=30, knn_select
+             once) → ``velocity.moments(second=True)`` (graph_matvec 4
+             times) → ``velocity.estimate`` in both modes →
+             ``velocity.graph`` → ``embed.umap`` →
+             ``velocity.embedding`` → ``terminal_states`` →
+             ``fate_probabilities`` → ``lineage_drivers`` →
+             ``recover_dynamics`` → ``latent_time``, each op's wall and
+             peak memory; then ``velocity.moments(mesh=)`` over 4 shards
+             of cuda:0 (ring, all_gather) against the unsharded moments,
+             graph_matvec P² or P times.  Checks: every output finite,
+             fate rows summing to 1 within 1e-5 where mass arrived, at
+             least 2 terminal groups, the fate chain bit for bit in a
+             second run; latent time's Spearman against the true time
+             printed;
 7. neighbors — the rest of the kNN surface on the main path's embedding
              (68,579 × 50, k=15): ``knn_impl="xla"`` under both
              ``knn_coarse`` with refine 0 and 32 (``knn_refine_mode``
@@ -168,7 +194,11 @@ Phases, each printing one JSON line, each fatal on a failed check:
              the recipes phase's atlas_knn embedding with that run's
              launches;
              graph_matvec also at ``diffuse_sharded``'s shapes (a ring
-             step on one shard's chunk, an all_gather product).
+             step on one shard's chunk, an all_gather product), at the
+             layouts' spectral start (d = 8) and at the velocity
+             moments (d = 2000, and ``moments(mesh=)``'s ring step and
+             all_gather product at d = 8000); knn_select also at the
+             velocity stand-in's 68,579² × 30, k=30.
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -436,7 +466,8 @@ def main_phase(card: str):
 
 def staged(steps, data, dev) -> tuple:
     """Run ``steps`` (Transforms) one by one on ``dev``: the output and
-    each stage's wall time and peak device memory."""
+    each stage's wall time and peak device memory (each also printed to
+    stderr as it ends, so a run cut by its time limit shows where)."""
     import torch
 
     stages = []
@@ -448,6 +479,8 @@ def staged(steps, data, dev) -> tuple:
         sync()
         stages.append({"stage": t.name, "s": time.perf_counter() - t0,
                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        print(f"[stage] {t.name} {stages[-1]['s']:.3f} s", file=sys.stderr,
+              flush=True)
     return data, stages
 
 
@@ -1277,6 +1310,437 @@ def cluster_phase(main: dict, card: str) -> dict:
           "compare_s": compare_s,
           "phase_s": time.perf_counter() - t_phase})
     return {"jaccard_launches": jaccard_launches}
+
+
+# ----------------------------------------------------------------------
+# 6c. layouts
+# ----------------------------------------------------------------------
+
+# (op, obsm key, epochs, scale of its spectral start)
+LAYOUT_RUNS = (("embed.umap", "X_umap", 200, 10.0),
+               ("embed.force_directed", "X_draw_graph", 300, 1.0))
+# a layout's 15-NN label purity must reach this share of the kNN
+# graph's (PERF.md §2, stated before the first card run).  On a
+# 20,000-cell synthetic_counts graph on the CPU the reference's layouts
+# reach 0.956 and 0.767 of it, the port's 0.951 and 0.763
+LAYOUT_PURITY = {"embed.umap": 0.85, "embed.force_directed": 0.65}
+# card against CPU from one start and one draw of negatives: max |Δy|
+# over max |y| after 1 and after 10 epochs.  pow and exp differ by an
+# ulp between the two devices' libraries, and each epoch multiplies
+# such a difference: on the CPU alone, one ulp added to half the start
+# grows to 3e-7 of the scale after 1 epoch and to 1.6e-4 (UMAP) and
+# 4.8e-4 (ForceAtlas2) after 10, on a 20,000-cell synthetic_counts
+# graph.  ForceAtlas2 grows most: its start, scaled to ±1, keeps a
+# cluster's cells within ~1e-3 of each other, where its 1/d² repulsion
+# is steepest.
+LAYOUT_CPU_TOL = {1: {"embed.umap": 1e-5, "embed.force_directed": 1e-5},
+                  10: {"embed.umap": 1e-3, "embed.force_directed": 1e-2}}
+SPECTRAL_MATVEC = 61  # embed.spectral's 60 subspace iterations + 1
+
+
+def layouts_phase(graph: dict, card: str) -> dict:
+    """``embed.umap`` (200 epochs), ``embed.force_directed`` (300) and
+    ``embed.draw_graph`` on the graph phase's output (68,579 cells, its
+    k=15 graph and connectivities), each layout twice on the card.
+    Checks: the two runs equal bit for bit, ``draw_graph`` bit for bit
+    ``force_directed``; finite (n, 2) layouts; 15-NN label purity ≥
+    ``LAYOUT_PURITY`` × the kNN graph's; graph_matvec launched 61 times
+    by each spectral start.  Then each layout's optimiser on the card and
+    on the CPU from one start with one draw of negatives, 1 and 10
+    epochs: max |Δ| within ``LAYOUT_CPU_TOL`` × max |y|.  Each run's
+    wall and peak memory."""
+    import torch
+
+    from sctools_tpu_torch import Transform
+    from sctools_tpu_torch.ops import graph_kernels as GK
+    from sctools_tpu_torch.ops import umap as U
+    from sctools_tpu_torch.ops.graph import (_sym_normalized_edges,
+                                             _symmetrized_weights)
+    from sctools_tpu_torch.ops.knn import knn_arrays
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    data = graph["out"]
+    n = data.n_cells
+    idx = data.obsp["knn_indices"][:n]
+    conn = data.obsp["connectivities"][:n]
+    labels = data.obs["cluster_true"][:n]
+    pur_graph = purity(labels, idx)
+    runs, results, launches = [], {}, 0
+    for op, key, epochs, _ in LAYOUT_RUNS:
+        GK.matvec.launches = 0
+        first, st1 = staged([Transform(op, n_epochs=epochs)], data, dev)
+        spectral = GK.matvec.launches
+        check(spectral == SPECTRAL_MATVEC,
+              f"{op}: its spectral start launched graph_matvec {spectral} "
+              f"times, expected {SPECTRAL_MATVEC}")
+        launches += spectral
+        again, st2 = staged([Transform(op, n_epochs=epochs)], data, dev)
+        y = first.obsm[key][:n]
+        check(tuple(y.shape) == (n, 2) and bool(torch.isfinite(y).all()),
+              f"{op}: {key} is not a finite (n, 2) layout")
+        check(torch.equal(y, again.obsm[key][:n]),
+              f"{op}: two runs on the card differ")
+        nbr, _ = knn_arrays(y, y, k=15, metric="euclidean",
+                            exclude_self=True)
+        pur = purity(labels, nbr[:n])
+        gate = LAYOUT_PURITY[op]
+        check(pur >= gate * pur_graph,
+              f"{op}: 15-NN label purity {pur} < {gate} × the kNN "
+              f"graph's {pur_graph}")
+        runs.append({"op": op, "epochs": epochs, "stages": st1 + st2,
+                     "spectral_matvec": spectral, "purity": pur,
+                     "purity_gate": gate, "scale": float(y.abs().max())})
+        results[op] = y
+        del first, again
+    drawn, st = staged([Transform("embed.draw_graph",
+                                  n_epochs=LAYOUT_RUNS[1][2])], data, dev)
+    check(torch.equal(drawn.obsm["X_draw_graph"][:n],
+                      results["embed.force_directed"]),
+          "embed.draw_graph differs from embed.force_directed")
+    runs.append({"op": "embed.draw_graph", "stages": st,
+                 "bitwise_force_directed": True})
+    del drawn
+
+    # the optimisers alone, card against CPU, from one start and one draw
+    seed = 0
+    compare = {}
+    for op, _, _, scale in LAYOUT_RUNS:
+        y0 = U._spectral_init(data, 2, seed, dev, scale=scale)
+        if op == "embed.umap":
+            w = _symmetrized_weights(idx, conn, mode="union_norm")
+            fn = U.umap_layout_arrays
+        else:
+            w = conn
+            fn = U.fa2_layout_arrays
+        compare[op] = []
+        for epochs, tols in LAYOUT_CPU_TOL.items():
+            t0 = time.perf_counter()
+            y_card = fn(idx, w, y0, seed, n_epochs=epochs).cpu()
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            y_cpu = fn(idx.cpu(), w.cpu(), y0.cpu(), seed, n_epochs=epochs)
+            cpu_s = time.perf_counter() - t0
+            err = float((y_card - y_cpu).abs().max() / y_cpu.abs().max())
+            check(err <= tols[op],
+                  f"{op}: card against CPU after {epochs} epochs: max |Δ| "
+                  f"{err} of the scale > {tols[op]}")
+            compare[op].append({"epochs": epochs, "rel_max_abs_err": err,
+                                "tol": tols[op],
+                                "bitwise": bool(torch.equal(y_card, y_cpu)),
+                                "card_s": card_s, "cpu_s": cpu_s})
+    emit({"phase": "layouts", "card": card, "cells": n,
+          "k": int(idx.shape[1]), "graph_purity": pur_graph, "runs": runs,
+          "card_vs_cpu": compare, "phase_s": time.perf_counter() - t_phase})
+    s_edges, _, _ = _sym_normalized_edges(idx, conn)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v0 = torch.randn((n, 2 + 1 + 5), generator=gen, device=dev)
+    return {"idx": idx, "spectral": (s_edges, v0, launches)}
+
+
+# ----------------------------------------------------------------------
+# 6d. velocity
+# ----------------------------------------------------------------------
+
+VEL_GENES = 2000  # scVelo's filter_and_normalize(n_top_genes=2000)
+VEL_PCS, VEL_K = 30, 30  # scVelo's pp.moments(n_pcs=30, n_neighbors=30)
+VEL_BRANCH = 0.3  # the true time at which the trunk splits into two arms
+VEL_SEED = 0
+
+
+def velocity_standin(n: int, g: int, seed: int, dev):
+    """The seeded stand-in for scVelo's pancreas / dentate gyrus data
+    (downloads the repository does not hold): n cells along a trunk that
+    splits at true time 0.3 into two arms, g genes in three programs
+    (trunk, arm A, arm B; a program runs only in its own cells), each
+    gene on the splicing ODE (rates drawn as in
+    ``tests/test_velocity.py:260``: α in 2–5, β in 3–8, γ/β in 0.3–3,
+    switch at 0.45–0.8 of the program's span), Poisson counts of
+    ``level_g · library_c · (u, s)``.  Returns (spliced counts, unspliced
+    counts, true time, arm), on ``dev``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = torch.float64
+
+    def unif(lo, hi, size):
+        return lo + (hi - lo) * torch.rand(size, generator=gen, device=dev,
+                                           dtype=f64)
+
+    t = unif(0.0, 1.0, (n,))
+    arm = torch.where(t < VEL_BRANCH, 0,
+                      1 + (unif(0.0, 1.0, (n,)) < 0.5).long())
+    program = torch.arange(g, device=dev) % 3  # 0 trunk, 1 arm A, 2 arm B
+    alpha = unif(2.0, 5.0, (g,))
+    beta = unif(3.0, 8.0, (g,))
+    gamma = beta * unif(0.3, 3.0, (g,))
+    gamma = torch.where((gamma - beta).abs() < 1e-3 * beta, 1.001 * beta,
+                        gamma)
+    t_on = torch.where(program == 0, 0.0, VEL_BRANCH).to(f64)
+    span = unif(0.45, 0.8, (g,)) * (1.0 - t_on)  # on until the switch
+    tau = torch.clamp(t[:, None] - t_on[None, :], min=0.0)
+
+    def on(tt):
+        u = alpha / beta * (1.0 - torch.exp(-beta * tt))
+        s = (alpha / gamma * (1.0 - torch.exp(-gamma * tt))
+             + alpha / (gamma - beta) * (torch.exp(-gamma * tt)
+                                         - torch.exp(-beta * tt)))
+        return u, s
+
+    u_sw, s_sw = on(span)
+    off = torch.clamp(tau - span, min=0.0)
+    u_on, s_on = on(torch.minimum(tau, span))
+    u = torch.where(tau <= span, u_on, u_sw * torch.exp(-beta * off))
+    s = torch.where(tau <= span, s_on,
+                    s_sw * torch.exp(-gamma * off)
+                    + beta * u_sw / (gamma - beta)
+                    * (torch.exp(-beta * off) - torch.exp(-gamma * off)))
+    del u_on, s_on, tau, off
+    active = (program[None, :] == 0) | (program[None, :] == arm[:, None])
+    level = torch.exp(1.0 + 0.5 * torch.randn(g, generator=gen, device=dev,
+                                              dtype=f64))
+    lib = torch.exp(0.3 * torch.randn(n, generator=gen, device=dev,
+                                      dtype=f64))
+    scale = lib[:, None] * level[None, :]
+    U = torch.poisson(torch.where(active, u * scale, 0.0).float(),
+                      generator=gen)
+    S = torch.poisson(torch.where(active, s * scale, 0.0).float(),
+                      generator=gen)
+    return S, U, t, arm
+
+
+def library_normalized(L):
+    """Each cell's counts scaled to the median library size (scVelo's
+    ``filter_and_normalize`` of a layer)."""
+    import torch
+
+    size = L.sum(dim=1, keepdim=True)
+    return L / torch.clamp(size, min=1.0) * size.median()
+
+
+def all_finite(data, fields) -> list:
+    """The fields of ``data`` (``(where, key)``) that hold a non-finite
+    value."""
+    import torch
+
+    return [f"{where}[{key!r}]" for where, key in fields
+            if not bool(torch.isfinite(
+                getattr(data, where)[key].float()).all())]
+
+
+FATE_FIELDS = (("obs", "terminal_states"), ("uns", "terminal_stationary"),
+               ("obsm", "fate_probs"))
+
+
+def velocity_phase(card: str) -> dict:
+    """scVelo's workflow on a seeded stand-in (``velocity_standin``,
+    68,579 cells × 2,000 genes), on the card: library size → log1p →
+    30-PC randomized PCA → kNN (k=30; knn_select once), then
+    ``velocity.moments(second=True)`` (graph_matvec 4 times at d =
+    2000), ``velocity.estimate`` in both modes, ``velocity.graph`` →
+    ``embed.umap`` → ``velocity.embedding`` → ``terminal_states`` →
+    ``fate_probabilities`` → ``lineage_drivers`` → ``recover_dynamics``
+    → ``latent_time``, each op's wall and peak memory; then
+    ``velocity.moments(mesh=)`` over 4 shards of cuda:0, ring and
+    all_gather, within rtol 1e-5 and atol 1e-5 of the unsharded moments,
+    graph_matvec launched P² or P times.  Checks: every output finite;
+    fate rows summing to 1 within 1e-5 where mass arrived; at least 2
+    terminal groups; a second run of the fate chain equal bit for bit.
+    The Spearman correlation of latent_time with the true time is
+    printed."""
+    import torch
+    from scipy.stats import spearmanr
+
+    from sctools_tpu_torch import Transform
+    from sctools_tpu_torch.data.dataset import CellData
+    from sctools_tpu_torch.ops import graph_kernels as GK
+    from sctools_tpu_torch.ops.graph import _symmetrized_weights
+    from sctools_tpu_torch.ops.knn_kernel import knn_select
+    from sctools_tpu_torch.parallel import make_mesh
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    n = MAIN_CELLS
+    sync()
+    t0 = time.perf_counter()
+    S, U, t_true, arm = velocity_standin(n, VEL_GENES, VEL_SEED, dev)
+    sync()
+    gen_s = time.perf_counter() - t0
+    data = CellData(S, obs={"t_true": t_true, "arm": arm},
+                    layers={"spliced": library_normalized(S),
+                            "unspliced": library_normalized(U)})
+    del U
+    knn_select.launches = 0
+    pre, stages = staged([Transform("normalize.library_size"),
+                          Transform("normalize.log1p"),
+                          Transform("pca.randomized", n_components=VEL_PCS),
+                          Transform("neighbors.knn", k=VEL_K)], data, dev)
+    knn_launches = knn_select.launches
+    check(knn_launches == 1, f"the stand-in's neighbors.knn launched "
+                             f"knn_select {knn_launches} times")
+    GK.matvec.launches = 0
+    mom, st = staged([Transform("velocity.moments", second=True)], pre, dev)
+    stages += st
+    moment_launches = GK.matvec.launches
+    check(moment_launches == 4, f"velocity.moments(second=True) launched "
+                                f"graph_matvec {moment_launches} times")
+    det, st = staged([Transform("velocity.estimate")], mom, dev)
+    stages += st
+    est, st = staged([Transform("velocity.estimate", mode="stochastic")],
+                     mom, dev)
+    stages += st
+    GK.matvec.launches = 0
+    chain = [Transform("velocity.graph"), Transform("embed.umap"),
+             Transform("velocity.embedding", basis="umap")]
+    emb, st = staged(chain, est, dev)
+    stages += st
+    umap_matvec = GK.matvec.launches
+    check(umap_matvec == SPECTRAL_MATVEC,
+          f"embed.umap's spectral start launched graph_matvec "
+          f"{umap_matvec} times")
+    fate_ops = [Transform("velocity.terminal_states"),
+                Transform("velocity.fate_probabilities")]
+    fates, st = staged(fate_ops, emb, dev)
+    stages += st
+    drivers, st = staged([Transform("velocity.lineage_drivers")], fates,
+                         dev)
+    stages += st
+    dyn, st = staged([Transform("velocity.recover_dynamics"),
+                      Transform("velocity.latent_time")], drivers, dev)
+    stages += st
+    again, _ = staged(fate_ops, emb, dev)
+    check(all(same_bits(getattr(fates, where)[key],
+                        getattr(again, where)[key])
+              for where, key in FATE_FIELDS),
+          "two runs of the fate chain on the card differ")
+    del again
+
+    bad = (all_finite(mom, [("layers", k) for k in ("Ms", "Mu", "Mss",
+                                                     "Mus")])
+           + all_finite(det, [("layers", "velocity"),
+                              ("var", "velocity_gamma")])
+           + all_finite(est, [("layers", "velocity"),
+                              ("var", "velocity_gamma")])
+           + all_finite(emb, [("obsp", "velocity_graph"),
+                              ("obsm", "X_umap"),
+                              ("obsm", "velocity_umap")])
+           + all_finite(drivers, FATE_FIELDS[1:]
+                        + (("varm", "lineage_drivers"),))
+           + all_finite(dyn, [("var", k) for k in (
+               "fit_alpha", "fit_beta", "fit_gamma", "fit_t_switch",
+               "fit_scaling", "fit_r2")] + [("layers", "fit_t"),
+                                           ("layers", "velocity"),
+                                           ("obs", "latent_time")]))
+    check(not bad, f"non-finite outputs: {bad}")
+    term = fates.obs["terminal_states"][:n]
+    groups = int(term.max()) + 1
+    check(groups >= 2, f"{groups} terminal group(s), expected at least 2")
+    F = fates.obsm["fate_probs"][:n]
+    row = F.sum(dim=1)
+    arrived = row > 0
+    row_err = float((row[arrived] - 1).abs().max())
+    check(row_err <= 1e-5, f"fate rows sum to 1 ± {row_err}")
+    lt = dyn.obs["latent_time"][:n].cpu().numpy()
+    rho = float(spearmanr(lt, t_true.cpu().numpy()).statistic)
+    genes = det.var["velocity_genes"]
+
+    # the moments over 4 shards of cuda:0 against the unsharded ones
+    mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+    sharded = []
+    for strategy in ("ring", "all_gather"):
+        GK.matvec.launches = 0
+        out, st = staged([Transform("velocity.moments", second=True,
+                                    mesh=mesh, strategy=strategy)], pre,
+                         dev)
+        launches = GK.matvec.launches
+        expect = mesh.size ** 2 if strategy == "ring" else mesh.size
+        check(launches == expect,
+              f"velocity.moments(mesh=) {strategy}: graph_matvec "
+              f"{launches} launches, expected {expect}")
+        err = max(within(out.layers[k], mom.layers[k][:n], 1e-5, 1e-5)
+                  for k in ("Ms", "Mu", "Mss", "Mus"))
+        sharded.append({"strategy": strategy, "shards": mesh.size,
+                        "stages": st, "matvec_launches": launches,
+                        "max_abs_err": err})
+        del out
+    emit({"phase": "velocity", "card": card, "cells": n,
+          "genes": VEL_GENES, "pcs": VEL_PCS, "k": VEL_K,
+          "standin": "velocity_standin (seeded; not scVelo's data)",
+          "generate_s": gen_s, "stages": stages,
+          "knn_select_launches": knn_launches,
+          "moments_matvec_launches": moment_launches,
+          "umap_matvec_launches": umap_matvec,
+          "velocity_genes": {"deterministic": int(genes.sum()),
+                             "stochastic":
+                                 int(est.var["velocity_genes"].sum())},
+          "terminal_groups": groups,
+          "terminal_cells": int((term >= 0).sum()),
+          "fate_row_sum_max_err": row_err,
+          "fate_rows_arrived": int(arrived.sum()),
+          "fit_r2_over_0.3": int((dyn.var["fit_r2"] > 0.3).sum()),
+          "latent_time_spearman": rho, "fate_chain_bitwise": True,
+          "moments_mesh": sharded,
+          "phase_s": time.perf_counter() - t_phase})
+    idx = mom.obsp["knn_indices"][:n]
+    w = _symmetrized_weights(idx, mom.obsp["connectivities"][:n],
+                             mode="union")
+    w = torch.where(idx < 0, 0.0, w)
+    return {"x_pca": pre.obsm["X_pca"][:n], "knn_launches": knn_launches,
+            "idx": idx, "w": w, "S": mom.layers["spliced"][:n].contiguous(),
+            "moments_launches": moment_launches, "mesh": mesh,
+            "sharded": {r["strategy"]: r["matvec_launches"]
+                        for r in sharded}}
+
+
+def velocity_kernel_rows(lay: dict, vel: dict, card: str,
+                         peaks: dict) -> list:
+    """The kernel rows of phases layouts and velocity: graph_matvec at
+    the layouts' spectral start (d = 8, both layouts' launches) and at
+    the moments (d = 2000 on the stand-in's k=30 union graph; a ring
+    step and an all_gather product of ``velocity.moments(mesh=)`` over
+    4 shards, d = 8000); knn_select at the stand-in's 68,579² × 30,
+    k=30."""
+    import torch
+
+    from sctools_tpu_torch.ops.knn import _prep, knn_numpy
+    from sctools_tpu_torch.parallel.graph_multichip import (
+        _Sharded, pad_rows_for_mesh)
+    from sctools_tpu_torch.parallel.mesh import CELL_AXIS, split_rows
+
+    s_edges, v0, launches = lay["spectral"]
+    rows = [matvec_row(lay["idx"], s_edges, v0, launches,
+                       "embed.umap + embed.force_directed spectral start",
+                       card, peaks)]
+    idx, w, S = vel["idx"], vel["w"], vel["S"]
+    rows.append(matvec_row(idx, w, S, vel["moments_launches"],
+                           "velocity.moments, one layer", card, peaks))
+    m = vel["mesh"]
+    x = torch.cat([S] * 4, dim=1)  # the four layers' width
+    idx_p, w_p, x_p, _ = pad_rows_for_mesh(m, idx=idx, weights=w, x=x)
+    ring = _Sharded("ring step", idx_p, w_p, x_p, m, CELL_AXIS, "ring")
+    gather = _Sharded("all_gather", idx_p, w_p, x_p, m, CELL_AXIS,
+                      "all_gather")
+    x0 = split_rows(x_p, m)[0]
+    rows.append(matvec_row(ring.local[0][0], ring.w[0], x0,
+                           vel["sharded"]["ring"],
+                           f"velocity.moments(mesh=) ring step, {m.size} "
+                           "shards", card, peaks))
+    rows.append(matvec_row(gather.idx[0], gather.w[0], x_p,
+                           vel["sharded"]["all_gather"],
+                           f"velocity.moments(mesh=) all_gather, {m.size} "
+                           "shards", card, peaks))
+    del x, x_p, x0, ring, gather
+    emb = vel["x_pca"]
+    n = emb.shape[0]
+    host = emb.cpu().numpy()
+    oracle, _ = knn_numpy(host[:N_COMPARE], host, k=VEL_K, metric="cosine",
+                          chunk=256)
+    q = _prep(emb, "cosine", torch.float32)
+    rows.append(kernel_case(
+        f"{n}x{n}x{VEL_PCS} k={VEL_K} float32 (velocity stand-in)", q, q,
+        VEL_K, "cosine", oracle, vel["knn_launches"], card, peaks,
+        plain_reps=1, library_reps=2, all_bins=False))
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -2980,6 +3444,8 @@ def main() -> int:
     pal = palantir_phase(main_out, card)
     neighbors_phase(main_out, card)
     cluster = cluster_phase(main_out, card)
+    lay = layouts_phase(graph, card)
+    vel = velocity_phase(card)
     x_pca, launches = main_out["x_pca"], main_out["launches"]
     del main_out
     stream = stream_phase(card)
@@ -2994,6 +3460,7 @@ def main() -> int:
     kernels += path_matvec_rows(meta, pal, card, peaks)
     kernels += diffuse_matvec_rows(mesh, card, peaks)
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)
+    kernels += velocity_kernel_rows(lay, vel, card, peaks)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

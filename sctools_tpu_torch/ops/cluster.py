@@ -64,13 +64,23 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _segment_sum(values: torch.Tensor, seg: torch.Tensor,
-                 n_segments: int) -> torch.Tensor:
+def segment_order(seg: torch.Tensor, n_segments: int):
+    """``(order, lengths)`` of ``_segment_sum`` for the segment ids
+    ``seg`` (n,): the stable sort and the segment sizes, for a caller
+    that sums over one grouping many times."""
+    return (torch.argsort(seg, stable=True),
+            torch.bincount(seg, minlength=n_segments))
+
+
+def _segment_sum(values: torch.Tensor, seg: torch.Tensor | None,
+                 n_segments: int, order=None) -> torch.Tensor:
     """Sums of ``values`` (n,) or (n, d) by segment id ``seg`` (n,),
     each segment's members added in index order: (n_segments,) or
-    (n_segments, d).  Deterministic on every device."""
-    order = torch.argsort(seg, stable=True)
-    lengths = torch.bincount(seg, minlength=n_segments)
+    (n_segments, d).  Deterministic on every device.  ``order`` is
+    ``segment_order(seg, n_segments)``, built once (``seg`` is then
+    not read)."""
+    order, lengths = (segment_order(seg, n_segments) if order is None
+                      else order)
     v = values[order]
     flat = v.dim() == 1
     if flat:

@@ -148,7 +148,12 @@ def test_graph_kernel_wrapper_has_no_exception_handler(name):
     "embed.spectral", "embed.diffmap", "dpt.pseudotime", "palantir.run",
     "metacells.seacells", "metacells.aggregate", "cluster.leiden",
     "cluster.louvain", "cluster.leiden_like", "cluster.phenograph",
-    "cluster.kmeans", "cluster.dendrogram", "graph.paga"])
+    "cluster.kmeans", "cluster.dendrogram", "graph.paga", "embed.umap",
+    "embed.force_directed", "embed.draw_graph", "velocity.moments",
+    "velocity.estimate", "velocity.graph", "velocity.embedding",
+    "velocity.terminal_states", "velocity.fate_probabilities",
+    "velocity.lineage_drivers", "velocity.recover_dynamics",
+    "velocity.latent_time"])
 def test_graph_ops_default_to_the_card_and_raise_without_one(op):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None resolves to it")
@@ -190,7 +195,8 @@ def test_registry_is_separate_from_the_reference():
         "cluster.dendrogram", "cluster.kmeans", "cluster.leiden",
         "cluster.leiden_like", "cluster.louvain", "cluster.phenograph",
         "distance.pairwise", "dpt.pseudotime", "embed.diffmap",
-        "embed.spectral", "embed.tsne", "graph.connectivities",
+        "embed.draw_graph", "embed.force_directed", "embed.spectral",
+        "embed.tsne", "embed.umap", "graph.connectivities",
         "graph.diffusion_operator", "graph.jaccard", "graph.paga",
         "graph.reorder", "graph.restore_order", "hvg.select",
         "impute.magic",
@@ -202,7 +208,13 @@ def test_registry_is_separate_from_the_reference():
         "pca.exact", "pca.randomized", "qc.filter_cells",
         "qc.filter_genes", "qc.per_cell_metrics", "qc.per_gene_metrics",
         "qc.subsample", "recipe.pearson_residuals", "recipe.seurat",
-        "recipe.weinreb17", "recipe.zheng17", "util.snapshot_layer"]
+        "recipe.weinreb17", "recipe.zheng17", "util.snapshot_layer",
+        "velocity.embedding", "velocity.estimate",
+        "velocity.fate_probabilities", "velocity.graph",
+        "velocity.latent_time", "velocity.lineage_drivers",
+        "velocity.moments", "velocity.recover_dynamics",
+        "velocity.terminal_states"]
+    assert len(sctt.names()) == 56  # of the reference's 79
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     meta = sctt.registry.metadata("neighbors.knn_multichip")
     assert meta["sharding"] == "cells" and meta["collective"] is True
