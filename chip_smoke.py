@@ -19,6 +19,16 @@ Phases, each printing one JSON line, each fatal on a failed check:
              the card and once on the CPU over the path's log1p output:
              each symmetric difference of the 2000-gene sets may hold
              near-ties only (scores within 1e-5 relative of the 2000th);
+2a. sharded — the in-memory ops on cell-sharded data: the main phase's
+             raw counts through ``shard_celldata`` over 4 shards of
+             cuda:0, then QC → library size → log1p → HVG (2000, subset)
+             → 50-PC PCA (CholeskyQR over the blocks) through
+             ``Pipeline.run``, against the same steps on the card
+             without the mesh: per-cell obs bit for bit, the HVG sets
+             near-ties only (``hvg.select`` without subset on both
+             log1p outputs), explained variance within rtol 1e-3, the
+             result still sharded with finite scores on cuda:0; each
+             run's wall and peak device memory;
 2b. recipes — the preprocessing recipes on the main phase's raw counts
              (68,579 × 32,738), packed to the card once: the pipelines
              ``recipe_pipeline(name).run`` of seurat, zheng17,
@@ -39,7 +49,10 @@ Phases, each printing one JSON line, each fatal on a failed check:
              non-increasing variance; atlas_knn's recall@10 ≥ 0.99 on
              2,048 sampled cells with knn_select launched; each one-call
              op's cells and genes those of its pipeline, X within 1e-4;
-             the raw planes unchanged at the end;
+             the raw planes unchanged at the end.  The CPU runs of
+             hvg.select (and phase main's) run on a worker process while
+             the card goes on; their checks are read after phase
+             velocity;
 3. binned  — ``neighbors.knn`` (k=15) on the main path's output under
              ``knn_impl="pallas_binned"`` (1024 bins): knn_binned
              launched once and knn_select never, recall@10 ≥ 0.98;
@@ -134,6 +147,21 @@ Phases, each printing one JSON line, each fatal on a failed check:
              directory and back by ``ShardStore.source()`` with
              prefetch (per-cell totals bitwise, gene moments within
              rtol 1e-5; prefetch overlap and stall, read rate);
+8b. stream_mesh — configs[4]'s composition: the stream phase's shards
+             (on the card) through ``stream_pipeline(mesh=, k=15)``
+             over 4 shards of cuda:0 and over every card: each shard cut
+             into one row block a device, per-gene partials added in
+             mesh order, the ring kNN over the mesh.  Each stage's wall
+             and peak memory.  Checks against the stream phase: obs bit
+             for bit, HVG sets near-ties only, explained variance within
+             rtol 1e-3, recall@10 ≥ 0.99 of its ids; recall@10 ≥ 0.99
+             against the float64 oracle on 1,024 sampled cells;
+             knn_select launched P² times, padded rows -1; the stats
+             pass twice more: obs and per-gene moments bit for bit
+             (fixed-order sums); a prefetching host source of 131,072 cells on
+             the mesh (each block copied on its device's side stream)
+             against the same source flat: obs bit for bit, moments
+             within rtol 1e-5;
 9. mesh    — BASELINE configs[4]'s path on single-process meshes, on
              the stream phase's 1.3M × 50 embedding (the stand-in for
              the 10M-cell census slice): ``neighbors.knn_multichip``
@@ -198,7 +226,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              layouts' spectral start (d = 8) and at the velocity
              moments (d = 2000, and ``moments(mesh=)``'s ring step and
              all_gather product at d = 8000); knn_select also at the
-             velocity stand-in's 68,579² × 30, k=30.
+             velocity stand-in's 68,579² × 30, k=30, and at
+             stream_mesh's ring step (325,632² × 50 of its own
+             embedding).
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -254,6 +284,34 @@ def check(ok: bool, msg: str) -> None:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+_POOL = []  # the worker process of the CPU comparisons, made at first use
+
+
+def cpu_pool():
+    """One worker process for the CPU oracles and comparison runs: it
+    runs them while the card works on the next phase.  It is started on
+    the upper half of this process's cores, and this process keeps the
+    lower half from then on, so that the card phases' host work shares
+    neither cores nor the interpreter lock with it.  A failed check in
+    a job raises where its ``result()`` is read."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    if not _POOL:
+        cores = sorted(os.sched_getaffinity(0))
+        mine = cores[:max(1, len(cores) // 2)]
+        theirs = cores[len(mine):] or cores
+        os.sched_setaffinity(0, theirs)  # the worker inherits this mask
+        try:
+            pool = ProcessPoolExecutor(
+                max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+            pool.submit(int).result()  # started now, on those cores
+        finally:
+            os.sched_setaffinity(0, mine)
+        _POOL.append(pool)
+    return _POOL[0]
 
 
 def sync():
@@ -461,7 +519,82 @@ def main_phase(card: str):
           "recall_at_10": recall, "recall_queries": N_RECALL,
           "hvg_sets": hvg_sets})
     return {"raw": ds, "out": out, "x_pca": x_pca, "launches": launches,
-            "sample": sample, "oracle": oracle, "hvg_cpu": hvg_cpu}
+            "sample": sample, "oracle": oracle, "hvg_cpu": hvg_cpu,
+            "hvg_sets": hvg_sets}
+
+
+SHARDED_OBS = ("total_counts", "n_genes", "pct_counts_mt", "library_size")
+
+
+def sharded_phase(raw, card: str, mesh=None, label: str | None = None
+                  ) -> dict:
+    """``shard_celldata(raw, mesh)`` (4 shards of cuda:0 by default)
+    through ``Pipeline(MAIN_STEPS[:5])`` against the same pipeline on
+    the card without the mesh.  Checks: the per-cell obs bit for bit
+    (row-local), the HVG sets near-ties only (``hvg.select`` without
+    subset over both log1p outputs, for every gene's score), explained
+    variance within rtol 1e-3, and the output still sharded: X and
+    X_pca in blocks on the mesh's devices, the scores finite.  Each
+    pipeline's wall and peak device memory."""
+    import torch
+
+    from sctools_tpu_torch import Pipeline, apply
+    from sctools_tpu_torch.data.sharded import ShardedRows, is_sharded
+    from sctools_tpu_torch.parallel import make_mesh, shard_celldata
+
+    dev = torch.device(DEVICE)
+    if mesh is None:
+        mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+        label = f"cuda:0 x {MESH_SHARDS}"
+    n = raw.n_cells
+    pipe = Pipeline(MAIN_STEPS[:5])
+    t0 = time.perf_counter()
+    sharded = shard_celldata(raw, mesh)
+    for d in set(mesh.devices):
+        torch.cuda.synchronize(d)
+    shard_s = time.perf_counter() - t0
+    runs, outs = [], {}
+    for what, data in (("one device", raw), (label, sharded)):
+        out, wall, peak = timed_run(lambda: pipe.run(data, device=dev),
+                                    devices=set(mesh.devices))
+        pre = Pipeline(MAIN_STEPS[:3]).run(data, device=dev)
+        hv = apply("hvg.select", pre, n_top=STREAM_TOP, device=dev).var
+        outs[what] = (out, np.flatnonzero(hv["highly_variable"].cpu()
+                                          .numpy()),
+                      hv["hvg_score"].cpu().numpy())
+        runs.append({"data": what, "s": wall, "peak_gb": peak})
+        del pre, hv
+    (one, g1, s1), (got, g2, s2) = outs.values()
+    what = f"Pipeline(MAIN_STEPS[:5]) on shard_celldata(mesh={label})"
+    X, emb = got.X, got.obsm["X_pca"]
+    check(is_sharded(got) and isinstance(emb, ShardedRows)
+          and [b.device for b in X.blocks] == list(mesh.devices)
+          and [b.device for b in emb.blocks] == list(mesh.devices),
+          f"{what}: the output is not sharded over the mesh")
+    for k in SHARDED_OBS:
+        a = got.obs[k].gather("cpu")[:n].numpy()
+        b = one.obs[k][:n].cpu().numpy()
+        check(np.array_equal(a, b), f"{what}: obs {k} differs from the "
+                                    "single device's")
+    diff = hvg_diff(g2, s2, g1, s1, STREAM_TOP,
+                    f"{what}: HVG vs the single device")
+    check(got.n_genes == STREAM_TOP, f"{what}: {got.n_genes} genes kept")
+    ev1 = one.uns["pca_explained_variance"].cpu().numpy()
+    ev2 = got.uns["pca_explained_variance"].cpu().numpy()
+    ev_err = float(np.max(np.abs(ev2 - ev1) / ev1))
+    check(ev_err <= 1e-3, f"{what}: explained variance beyond rtol 1e-3 "
+                          f"({ev_err})")
+    scores = emb.gather()
+    check(tuple(scores[:n].shape) == (n, DIM)
+          and bool(torch.isfinite(scores).all()),
+          f"{what}: X_pca {tuple(scores.shape)} or not finite")
+    emit({"phase": "sharded", "card": card, "cells": n,
+          "genes": raw.n_genes, "mesh": label, "shards": mesh.size,
+          "shard_celldata_s": shard_s, "runs": runs, "hvg_sym_diff": diff,
+          "ev_max_rel_err": ev_err})
+    del one, got, sharded, X, emb, scores, outs
+    torch.cuda.empty_cache()
+    return {"runs": runs, "hvg_sym_diff": diff, "ev_max_rel_err": ev_err}
 
 
 def staged(steps, data, dev) -> tuple:
@@ -599,65 +732,76 @@ def pca_ok(out, what: str) -> None:
           f"{what}: explained variance not non-increasing")
 
 
-def timed_run(fn) -> tuple:
-    """``fn()`` on the card: its output, wall seconds and peak device
-    memory (GB)."""
+def timed_run(fn, devices=(None,)) -> tuple:
+    """``fn()`` on the card: its output, wall seconds to the drain of
+    ``devices`` (the current card) and peak memory (GB) of the current
+    card."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    sync()
+    for d in devices:
+        torch.cuda.synchronize(d)
     t0 = time.perf_counter()
     out = fn()
-    sync()
+    for d in devices:
+        torch.cuda.synchronize(d)
     return (out, time.perf_counter() - t0,
             torch.cuda.max_memory_allocated() / 1e9)
 
 
 def hvg_card_vs_cpu(pre, flavor: str, n_top: int, what: str) -> dict:
-    """``hvg.select`` of ``flavor`` on the card and on the CPU over one
-    input (the recipe's steps before it).  The gene means and variances
-    must agree within rtol 1e-4; the sets may differ in near-ties only,
+    """``hvg.select`` of ``flavor`` on the card now and on the CPU on the
+    worker process, over one input (the recipe's steps before it).
+    ``finish()`` waits for the CPU run and checks: the gene means and
+    variances within rtol 1e-4; the sets differing in near-ties only,
     and for the dispersion-based flavors in genes whose own score moved
     across the cutoff (by as much as it moved from card to CPU, plus
     the cutoff's move): their float32 bin statistics, the reference's
     formula, amplify the moments' ulps (a bin's variance s/n − mean²
-    cancels; the card's sums run in no fixed order).  Returns the card
-    run's set and scores, and ``band``, the largest such move, which
-    bounds the flips between two card runs."""
+    cancels; the card's sums run in no fixed order).  It returns the
+    summary and ``band``, the largest such move, which bounds the flips
+    between two card runs.  Also returned now: the card run's set and
+    scores."""
     import torch
 
     from sctools_tpu_torch import apply
 
-    runs = []
-    for where in (torch.device(DEVICE), torch.device("cpu")):
-        t0 = time.perf_counter()
-        out = apply("hvg.select", pre.to_device(where), n_top=n_top,
-                    flavor=flavor, device=where)
-        hv = out.var["highly_variable"].cpu().numpy()
-        runs.append((np.flatnonzero(hv),
-                     out.var["hvg_score"].cpu().numpy().astype(np.float64),
-                     time.perf_counter() - t0,
-                     [out.var[k].cpu().numpy().astype(np.float64)
-                      for k in ("means", "variances")]))
-        del out
-    (g1, s1, t1, m1), (g2, s2, t2, m2) = runs
-    for k, a, b in zip(("means", "variances"), m1, m2):
-        bad = np.abs(a - b) > 1e-4 * np.abs(b) + 1e-12
-        check(not bad.any(), f"{what}: card and CPU gene {k} differ at "
-                             f"{np.flatnonzero(bad)[:10]}")
-    ds = np.abs(s1 - s2)
-    cut_moved = abs(np.sort(s1)[::-1][n_top - 1]
-                    - np.sort(s2)[::-1][n_top - 1])
-    noisy = flavor in ("dispersion", "cell_ranger")
-    band = float(ds.max() + cut_moved) if noisy else 0.0
-    return {"card_genes": g1, "card_scores": s1, "band": band,
-            "summary": {"flavor": flavor, "card_vs_cpu": hvg_diff(
-                g1, s1, g2, s2, n_top, f"{what}: hvg.select card vs CPU",
-                noise=ds + cut_moved if noisy else None),
-                "max_score_diff": float(ds.max()),
-                "genes_score_diff_over_1e-4": int(
-                    (ds > 1e-4 * (1 + np.abs(s2))).sum()),
-                "card_s": t1, "cpu_s": t2}}
+    t0 = time.perf_counter()
+    out = apply("hvg.select", pre, n_top=n_top, flavor=flavor,
+                device=torch.device(DEVICE))
+    g1 = np.flatnonzero(out.var["highly_variable"].cpu().numpy())
+    s1 = out.var["hvg_score"].cpu().numpy().astype(np.float64)
+    t1 = time.perf_counter() - t0
+    m1 = [out.var[k].cpu().numpy().astype(np.float64)
+          for k in ("means", "variances")]
+    del out
+    job = cpu_pool().submit(cpu_hvg, pre.to_device("cpu"), flavor, n_top)
+    done = []
+
+    def finish() -> tuple:
+        if done:
+            return done[0]
+        g2, s2, t2, m2 = job.result()
+        for k, a, b in zip(("means", "variances"), m1, m2):
+            bad = np.abs(a - b) > 1e-4 * np.abs(b) + 1e-12
+            check(not bad.any(), f"{what}: card and CPU gene {k} differ "
+                                 f"at {np.flatnonzero(bad)[:10]}")
+        ds = np.abs(s1 - s2)
+        cut_moved = abs(np.sort(s1)[::-1][n_top - 1]
+                        - np.sort(s2)[::-1][n_top - 1])
+        noisy = flavor in ("dispersion", "cell_ranger")
+        band = float(ds.max() + cut_moved) if noisy else 0.0
+        summary = {"flavor": flavor, "card_vs_cpu": hvg_diff(
+            g1, s1, g2, s2, n_top, f"{what}: hvg.select card vs CPU",
+            noise=ds + cut_moved if noisy else None),
+            "max_score_diff": float(ds.max()),
+            "genes_score_diff_over_1e-4": int(
+                (ds > 1e-4 * (1 + np.abs(s2))).sum()),
+            "card_s": t1, "cpu_s": t2}
+        done.append((summary, band))
+        return done[0]
+
+    return {"card_genes": g1, "card_scores": s1, "finish": finish}
 
 
 def recipes_phase(main: dict, card: str) -> dict:
@@ -690,6 +834,7 @@ def recipes_phase(main: dict, card: str) -> dict:
     expect = expected_filters(csr)
     runs, hvg, kept = [], {}, {}
     atlas = None
+    later = []  # checks that wait for the worker's CPU runs
 
     def genes_of(out):
         return np.array([gene_pos[g] for g in out.var["gene_name"]])
@@ -714,11 +859,17 @@ def recipes_phase(main: dict, card: str) -> dict:
                   f"{name}: the gene filter differs from the host count")
             h = hvg_card_vs_cpu(pre, flavor, n_top, name)
             del pre
-            # the recipe's genes: the card run's set, up to near-ties
-            info["hvg"] = dict(h["summary"], recipe_vs_card=hvg_diff(
-                np.searchsorted(want_genes, genes), h["card_scores"],
-                h["card_genes"], h["card_scores"], n_top,
-                f"{name}: recipe genes vs hvg.select", noise=h["band"]))
+
+            def recipe_genes(info=info, h=h, got=np.searchsorted(
+                    want_genes, genes), n_top=n_top, name=name):
+                # the recipe's genes: the card run's set, up to near-ties
+                summary, band = h["finish"]()
+                info["hvg"] = dict(summary, recipe_vs_card=hvg_diff(
+                    got, h["card_scores"], h["card_genes"],
+                    h["card_scores"], n_top,
+                    f"{name}: recipe genes vs hvg.select", noise=band))
+
+            later.append(recipe_genes)
             hvg[name] = h
             check(out.n_genes == n_top, f"{name}: {out.n_genes} genes")
         else:
@@ -732,12 +883,18 @@ def recipes_phase(main: dict, card: str) -> dict:
         if "X_pca" in out.obsm:
             pca_ok(out, name)
         if name == "atlas_knn":
-            cpu_genes, cpu_scores = main["hvg_cpu"]
             hv = out.var["highly_variable"].cpu().numpy()
-            info["hvg"] = {"flavor": "seurat_v3", "card_vs_cpu": hvg_diff(
-                np.flatnonzero(hv), out.var["hvg_score"].cpu().numpy(),
-                cpu_genes, cpu_scores, 2000,
-                "atlas_knn: seurat_v3 card vs the main phase's CPU run")}
+
+            def atlas_genes(info=info, got=np.flatnonzero(hv),
+                            scores=out.var["hvg_score"].cpu().numpy()):
+                cpu_genes, cpu_scores = main["hvg_cpu"]()
+                info["hvg"] = {"flavor": "seurat_v3",
+                               "card_vs_cpu": hvg_diff(
+                                   got, scores, cpu_genes, cpu_scores, 2000,
+                                   "atlas_knn: seurat_v3 card vs the main "
+                                   "phase's CPU run")}
+
+            later.append(atlas_genes)
             n = out.n_cells
             emb = out.obsm["X_pca"][:n]
             idx = out.obsp["knn_indices"][:n].cpu().numpy()
@@ -788,11 +945,16 @@ def recipes_phase(main: dict, card: str) -> dict:
             want_genes = expect[name][1]
             check(np.array_equal(cells, p_cells),
                   f"{op}: cells differ from recipe_pipeline({name!r})")
-            info["vs_pipeline"] = {"genes": hvg_diff(
-                np.searchsorted(want_genes, genes),
-                h["card_scores"], np.searchsorted(want_genes, p_genes),
-                h["card_scores"], n_top, f"{op} vs its pipeline",
-                noise=h["band"])}
+            info["vs_pipeline"] = {}
+
+            def op_genes(info=info, h=h, got=np.searchsorted(
+                    want_genes, genes), want=np.searchsorted(
+                    want_genes, p_genes), n_top=n_top, op=op):
+                info["vs_pipeline"]["genes"] = hvg_diff(
+                    got, h["card_scores"], want, h["card_scores"], n_top,
+                    f"{op} vs its pipeline", noise=h["finish"]()[1])
+
+            later.append(op_genes)
             if np.array_equal(genes, p_genes):
                 err = float((out.X - p_out.X).abs().max())
                 check(err <= 1e-4, f"{op}: X differs from its pipeline's "
@@ -807,10 +969,20 @@ def recipes_phase(main: dict, card: str) -> dict:
           and torch.equal(data.X.data, planes[1]),
           "a recipe wrote the raw counts in place")
     del data, planes
-    emit({"phase": "recipes", "card": card, "cells": raw.n_cells,
-          "genes": raw.n_genes, "runs": runs,
-          "hvg": {k: v["summary"] for k, v in hvg.items()}})
-    return atlas
+
+    def finish() -> None:
+        """The checks on the worker's CPU runs, and the phase's line."""
+        t0 = time.perf_counter()
+        main["hvg_cpu"]()
+        for fn in later:
+            fn()
+        emit({"phase": "main", "hvg_sets": main["hvg_sets"]})
+        emit({"phase": "recipes", "card": card, "cells": raw.n_cells,
+              "genes": raw.n_genes, "runs": runs,
+              "hvg": {k: v["finish"]()[0] for k, v in hvg.items()},
+              "cpu_wait_s": time.perf_counter() - t0})
+
+    return atlas, finish
 
 
 # ----------------------------------------------------------------------
@@ -1917,22 +2089,48 @@ def hvg_repeat(ds) -> tuple:
     dev = torch.device(DEVICE)
     pre = Pipeline(MAIN_STEPS[:3]).run(ds, device=dev)
     runs = []
-    for where in (dev, dev, torch.device("cpu")):
+    for where in (dev, dev):
         t0 = time.perf_counter()
-        out = apply("hvg.select", pre.to_device(where), n_top=STREAM_TOP,
-                    device=where)
+        out = apply("hvg.select", pre, n_top=STREAM_TOP, device=where)
         hv = out.var["highly_variable"].cpu().numpy()
         runs.append((np.flatnonzero(hv), out.var["hvg_score"].cpu().numpy(),
                      time.perf_counter() - t0))
         del out
+    host = pre.to_device("cpu")
     del pre
-    (g1, s1, t1), (g2, s2, t2), (g3, s3, t3) = runs
-    return {"n_top": STREAM_TOP,
-            "card_vs_card": hvg_diff(g1, s1, g2, s2, STREAM_TOP,
-                                     "hvg.select, card run 1 vs 2"),
-            "card_vs_cpu": hvg_diff(g1, s1, g3, s3, STREAM_TOP,
-                                    "hvg.select, card vs CPU"),
-            "card_s": [t1, t2], "cpu_s": t3}, (g3, s3)
+    (g1, s1, t1), (g2, s2, t2) = runs
+    cpu = cpu_pool().submit(cpu_hvg, host, "seurat_v3", STREAM_TOP)
+    summary = {"n_top": STREAM_TOP,
+               "card_vs_card": hvg_diff(g1, s1, g2, s2, STREAM_TOP,
+                                        "hvg.select, card run 1 vs 2"),
+               "card_s": [t1, t2]}
+
+    def finish() -> tuple:
+        g3, s3, t3, _ = cpu.result()
+        summary.update(card_vs_cpu=hvg_diff(g1, s1, g3, s3, STREAM_TOP,
+                                            "hvg.select, card vs CPU"),
+                       cpu_s=t3)
+        return g3, s3
+
+    return summary, finish
+
+
+def cpu_hvg(host, flavor: str, n_top: int) -> tuple:
+    """``hvg.select`` of ``flavor`` on the CPU over ``host`` (a CellData
+    on the CPU): the set, the scores, the seconds, and the gene means
+    and variances (float64).  Runs on the worker process."""
+    import torch
+
+    from sctools_tpu_torch import apply
+
+    t0 = time.perf_counter()
+    out = apply("hvg.select", host, n_top=n_top, flavor=flavor,
+                device=torch.device("cpu"))
+    return (np.flatnonzero(out.var["highly_variable"].numpy()),
+            out.var["hvg_score"].numpy().astype(np.float64),
+            time.perf_counter() - t0,
+            [out.var[k].numpy().astype(np.float64)
+             for k in ("means", "variances")])
 
 
 def store_phase(src, card: str) -> dict:
@@ -2079,7 +2277,7 @@ def stream_phase(card: str) -> dict:
     oracle_s = time.perf_counter() - t0
     recall = recall_at_k(idx[sample].cpu().numpy(), oracle, k=10)
     check(recall >= 0.99, f"stream: recall@10 {recall} < 0.99")
-    del idx, dist, host
+    del dist, host
 
     # stats + HVG twice more: the set may move by near-ties only
     sets = [(genes, ST.stream_hvg_scores(stats, src=src))]
@@ -2105,9 +2303,225 @@ def stream_phase(card: str) -> dict:
           "recall_at_10": recall, "recall_queries": N_COMPARE,
           "oracle_s": oracle_s, "explained_variance_top5": ev[:5].tolist(),
           "hvg_sym_diffs": hvg_diffs})
-    del src
+    # the source's shards, the stats, HVG and kNN ids stay for the
+    # stream_mesh phase, which frees them
+    return {"scores": scores, "launches": launches, "store": store,
+            "src": src, "stats": stats, "hvg": sets[0], "ev": ev,
+            "idx": idx, "path_s": path_s}
+
+
+# ----------------------------------------------------------------------
+# 8b. configs[4]'s streamed path on a mesh
+# ----------------------------------------------------------------------
+
+STREAM_MESH_STAGES = ("stream_stats", "stream_hvg", "stream_pca")
+OBS_KEYS = ("total_counts", "n_genes", "pct_counts_mt")
+
+
+def staged_stream_pipeline(src, mesh, dev) -> tuple:
+    """``stream_pipeline(src, mesh=mesh, k=15)`` at its defaults (seed
+    0: the stream phase's sketch), with each stage's wall and peak
+    device memory: the stages are wrapped, for this call, in timers
+    that drain the card before and after (the pipeline reads each
+    pass's result on the host anyway).  Returns the output, the path's
+    wall, the stages and the HVG scores."""
+    import torch
+
+    from sctools_tpu_torch.data import stream as ST
+    from sctools_tpu_torch.parallel import knn_multichip as KM
+
+    stages, scores = [], {}
+    saved = {name: getattr(ST, name) for name in STREAM_MESH_STAGES
+             + ("stream_hvg_scores",)}
+    saved_knn = KM.knn_multichip_arrays
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            stages.append({"stage": name, "s": time.perf_counter() - t0,
+                           "peak_gb": torch.cuda.max_memory_allocated()
+                           / 1e9})
+            return out
+        return run
+
+    def keep_scores(*args, **kw):
+        scores["hvg"] = saved["stream_hvg_scores"](*args, **kw)
+        return scores["hvg"]
+
+    try:
+        for name in STREAM_MESH_STAGES:
+            setattr(ST, name, timed(name, saved[name]))
+        ST.stream_hvg_scores = keep_scores
+        KM.knn_multichip_arrays = timed("knn_multichip_arrays (ring)",
+                                        saved_knn)
+        sync()
+        t0 = time.perf_counter()
+        out = ST.stream_pipeline(src, mesh=mesh, k=15, seed=0,
+                                 n_top=STREAM_TOP, n_components=DIM,
+                                 device=dev)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(ST, name, fn)
+        KM.knn_multichip_arrays = saved_knn
+    return out, wall, stages, scores["hvg"]
+
+
+def prefetch_on_mesh(shard, mesh, dev) -> dict:
+    """The prefetching source on a mesh: the first STORE_ROWS cells of
+    ``shard`` as a host CSR source (STORE_SHARD_ROWS-row shards,
+    prefetch on), whose blocks are pinned and copied on each device's
+    side stream, each waited for by its own event; ``stream_stats`` on
+    it against the same source without the mesh: obs bit for bit,
+    per-gene moments within rtol 1e-5."""
+    import dataclasses
+
+    from sctools_tpu_torch.data import stream as ST
+
+    csr = shard.to_scipy_csr()[:STORE_ROWS]
+    host = dataclasses.replace(ST.ShardSource.from_scipy(
+        csr, shard_rows=STORE_SHARD_ROWS, capacity=shard.capacity,
+        device=dev), prefetch=True)
+    want = ST.stream_stats(host)
+    meshed = host.with_mesh(mesh)
+    sync()
+    t0 = time.perf_counter()
+    got = ST.stream_stats(meshed)
+    wall = time.perf_counter() - t0
+    for k in OBS_KEYS:
+        check(np.array_equal(got[k], want[k]),
+              f"prefetch on the mesh: obs {k} differs from the flat pass")
+    err = 0.0
+    for k in ("gene_mean", "gene_var", "raw_gene_mean", "raw_gene_var"):
+        a, b = got[k], want[k]
+        err = max(err, float(np.max(np.abs(a - b)
+                                    / np.maximum(np.abs(b), 1e-30))))
+        check(np.allclose(a, b, rtol=1e-5, atol=0.0),
+              f"prefetch on the mesh: {k} beyond rtol 1e-5")
+    c = meshed.counters
+    return {"cells": STORE_ROWS, "shard_rows": STORE_SHARD_ROWS,
+            "stats_s": wall, "moments_max_rel_diff": err,
+            "overlap_s": c.overlap_s, "stall_s": c.stall_s}
+
+
+def stream_mesh_phase(stream: dict, card: str, meshes=None) -> dict:
+    """configs[4]'s composition: the stream phase's materialized 1.3M ×
+    28,672 shards (on the card, no host copy) in a ``ShardSource`` on
+    cuda:0 through ``stream_pipeline(mesh=, k=15)`` (seed 0, the stream
+    phase's) over 4 shards of cuda:0 and over ``make_mesh()`` (every
+    card), or over ``meshes`` ({label: mesh}).  Each stage's wall and
+    peak.  Checks against the stream
+    phase: obs bit for bit, the HVG sets near-ties only, explained
+    variance within rtol 1e-3, recall@10 ≥ 0.99 of its kNN ids; recall@10
+    ≥ 0.99 against the float64 oracle on 1,024 sampled cells (on a
+    worker process while the second mesh runs); knn_select launched P²
+    times (``mesh_launches``), padded rows -1; then ``stream_stats``
+    twice more on the first mesh: obs and per-gene moments bit for bit;
+    and ``prefetch_on_mesh``."""
+    import torch
+
+    from sctools_tpu_torch.data import stream as ST
+    from sctools_tpu_torch.ops.knn import knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn_kernel import knn_select
+    from sctools_tpu_torch.parallel import make_mesh
+
+    dev = torch.device(DEVICE)
+    base = stream["src"]
+    shards = [sh for _, sh in base]
+    n, genes = base.n_cells, base.n_genes
+    src = ST.ShardSource(lambda: iter(shards), n, genes, base.shard_rows,
+                         device=dev, factory_from=lambda k: iter(shards[k:]))
+    want_obs = {k: stream["stats"][k] for k in OBS_KEYS}
+    want_genes, want_scores = stream["hvg"]
+    want_ids = stream["idx"].cpu().numpy()
+    sample = np.sort(np.random.default_rng(3).choice(n, N_COMPARE,
+                                                     replace=False))
+    if meshes is None:
+        meshes = {f"cuda:0 x {MESH_SHARDS}": make_mesh(
+            devices=["cuda:0"] * MESH_SHARDS),
+            f"{torch.cuda.device_count()} card(s)": make_mesh()}
+    runs, oracle_job, kept = [], None, None
+    for label, mesh in meshes.items():
+        knn_select.launches = 0
+        out, wall, stages, hvg_scores = staged_stream_pipeline(src, mesh,
+                                                              dev)
+        launches = knn_select.launches
+        what = f"stream_pipeline(mesh={label})"
+        expect = mesh_launches(n, mesh.size, "ring")
+        check(launches == expect, f"{what}: {launches} knn_select launches, "
+                                  f"expected {expect}")
+        for k in OBS_KEYS:
+            check(np.array_equal(out["obs"][k], want_obs[k]),
+                  f"{what}: obs {k} differs from the stream phase's")
+        diff = hvg_diff(out["hvg_genes"], hvg_scores, want_genes,
+                        want_scores, STREAM_TOP,
+                        f"{what}: HVG vs the stream phase")
+        ev = out["pca_explained_variance"].cpu().numpy()
+        ev_err = float(np.max(np.abs(ev - stream["ev"]) / stream["ev"]))
+        check(ev_err <= 1e-3, f"{what}: explained variance beyond rtol "
+                              f"1e-3 ({ev_err})")
+        emb = out["X_pca"]
+        check(tuple(emb.shape) == (n, 50)
+              and bool(torch.isfinite(emb).all()),
+              f"{what}: X_pca {tuple(emb.shape)} or not finite")
+        idx = out["knn_indices"]
+        check(bool((idx[n:] == -1).all()), f"{what}: padding rows hold ids")
+        host_i = idx[:n].cpu().numpy()
+        rec_stream = recall_at_k(host_i, want_ids, k=10)
+        check(rec_stream >= 0.99, f"{what}: recall@10 {rec_stream} < 0.99 "
+                                  "of the stream phase's ids")
+        if oracle_job is None:
+            host = emb.cpu().numpy()
+            oracle_job = cpu_pool().submit(
+                knn_numpy, host[sample], host, k=15, metric="cosine",
+                chunk=256)
+            kept = {"emb": emb, "launches": launches, "mesh": mesh,
+                    "ids": host_i, "label": label}
+            del host
+        runs.append({"mesh": label, "shards": mesh.size, "s": wall,
+                     "stages": stages, "knn_select_launches": launches,
+                     "hvg_sym_diff": diff, "ev_max_rel_err": ev_err,
+                     "recall_at_10_vs_stream": rec_stream})
+        emit({"phase": "stream_mesh", "run": what, "s": wall,
+              "stages": stages})
+        del out, idx, host_i
+    t0 = time.perf_counter()
+    oracle, _ = oracle_job.result()
+    oracle_wait_s = time.perf_counter() - t0
+    recall = recall_at_k(kept["ids"][sample], oracle, k=10)
+    check(recall >= 0.99, f"stream_pipeline(mesh={kept['label']}): "
+                          f"recall@10 {recall} < 0.99 against the oracle")
+
+    # the stats pass twice more on the first mesh
+    msrc = src.with_mesh(next(iter(meshes.values())))
+    reps = [ST.stream_stats(msrc) for _ in range(2)]
+    for k in OBS_KEYS:
+        check(all(np.array_equal(r[k], want_obs[k]) for r in reps),
+              f"stream_stats on the mesh: obs {k} differs between runs")
+    for k in ("gene_mean", "gene_var", "raw_gene_mean", "raw_gene_var",
+              "gene_nnz"):
+        check(np.array_equal(reps[0][k], reps[1][k]),
+              f"stream_stats on the mesh: {k} differs between runs")
+    prefetch = prefetch_on_mesh(shards[0], next(iter(meshes.values())),
+                                dev)
+    emit({"phase": "stream_mesh", "card": card, "cells": n, "genes": genes,
+          "shards": base.n_shards, "shard_rows": base.shard_rows,
+          "single_device_path_s": stream["path_s"], "runs": runs,
+          "recall_at_10": recall, "recall_queries": N_COMPARE,
+          "oracle_wait_s": oracle_wait_s,
+          "stats_repeat": {"obs_bitwise": True, "moments_bitwise": True},
+          "prefetch": prefetch})
+    for key in ("src", "stats", "idx"):
+        stream.pop(key)
+    del src, msrc, shards, base, reps
     torch.cuda.empty_cache()
-    return {"scores": scores, "launches": launches, "store": store}
+    return {"emb": kept["emb"], "launches": kept["launches"],
+            "runs": runs}
 
 
 # ----------------------------------------------------------------------
@@ -3427,7 +3841,37 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
     return out
 
 
+def stream_mesh_kernel_row(smesh: dict, card: str, peaks: dict) -> list:
+    """knn_select at the stream_mesh phase's ring step: shard 0's
+    queries against its own chunk (325,632² × 50, k=15) of that phase's
+    4-shard embedding, with that run's launches."""
+    import torch
+
+    from sctools_tpu_torch.ops.knn import _prep, knn_numpy
+
+    emb = smesh["emb"]
+    n = emb.shape[0]
+    m = mesh_shard_rows(n, MESH_SHARDS)
+    host = emb[:m].cpu().numpy()
+    own, _ = knn_numpy(host[:N_COMPARE], host, k=15, metric="cosine",
+                       chunk=256)
+    shard = _prep(emb[:m], "cosine", torch.float32)
+    return [kernel_case(
+        f"{m}x{m}x{DIM} k=15 float32 (stream_pipeline(mesh=) ring step, "
+        f"{MESH_SHARDS} shards of cuda:0, its own embedding)", shard, shard,
+        15, "cosine", own, smesh["launches"], card, peaks, plain_reps=1,
+        library_reps=2, all_bins=False)]
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:
+        if _POOL:  # a failed phase leaves no CPU job running
+            _POOL[0].shutdown(wait=True, cancel_futures=True)
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3437,7 +3881,8 @@ def main() -> int:
 
     card = card_phase()
     main_out = main_phase(card)
-    atlas = recipes_phase(main_out, card)
+    sharded_phase(main_out["raw"], card)
+    atlas, recipes_finish = recipes_phase(main_out, card)
     binned_launches = binned_phase(main_out, card)
     graph = graph_phase(main_out["out"], card)
     meta = metacells_phase(main_out, card)
@@ -3446,9 +3891,11 @@ def main() -> int:
     cluster = cluster_phase(main_out, card)
     lay = layouts_phase(graph, card)
     vel = velocity_phase(card)
+    recipes_finish()  # the recipes' CPU runs, on the worker meanwhile
     x_pca, launches = main_out["x_pca"], main_out["launches"]
     del main_out
     stream = stream_phase(card)
+    smesh = stream_mesh_phase(stream, card)
     mesh = mesh_phase(stream, graph, card)
     edges_phase()
     binned_edges_phase()
@@ -3456,6 +3903,7 @@ def main() -> int:
     peaks = bounds_phase()
     kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks,
                             stream, mesh, atlas)
+    kernels += stream_mesh_kernel_row(smesh, card, peaks)
     kernels += graph_kernels_phase(graph, cluster, card, peaks)
     kernels += path_matvec_rows(meta, pal, card, peaks)
     kernels += diffuse_matvec_rows(mesh, card, peaks)

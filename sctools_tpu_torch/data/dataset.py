@@ -25,7 +25,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from .sharded import ShardedRows, is_sharded
 from .sparse import SparseCells
+
+#: what an op that does not run on cell-sharded data says when given it
+SHARDED_TODO = ("this op does not run on cell-sharded data yet (it would "
+                "gather the blocks to one device): ROADMAP.md Queue 1 "
+                "item 9; gather with to_host() first")
 
 
 @dataclasses.dataclass
@@ -42,12 +48,14 @@ class CellData:
     @property
     def n_cells(self) -> int:
         X = self.X
-        return X.n_cells if isinstance(X, SparseCells) else X.shape[0]
+        return (X.n_cells if isinstance(X, (SparseCells, ShardedRows))
+                else X.shape[0])
 
     @property
     def n_genes(self) -> int:
         X = self.X
-        return X.n_genes if isinstance(X, SparseCells) else X.shape[1]
+        return (X.n_genes if isinstance(X, (SparseCells, ShardedRows))
+                else X.shape[1])
 
     @property
     def shape(self):
@@ -85,9 +93,13 @@ class CellData:
         """Move to ``device``: a scipy CSR X (and layers) is packed to
         ``SparseCells`` first, a dense numpy X becomes a float32 tensor;
         numeric arrays become tensors; strings and objects stay on the
-        host.  Data already there is not copied."""
+        host.  Data already there is not copied.  Cell-sharded data
+        raises ``NotImplementedError``: gathering it to one device is
+        never done quietly (``to_host()`` gathers on request)."""
         import scipy.sparse as sp
 
+        if is_sharded(self):
+            raise NotImplementedError(SHARDED_TODO)
         device = torch.device(device)
 
         def put_matrix(v):
@@ -121,10 +133,13 @@ class CellData:
 
     def to_host(self) -> "CellData":
         """Fetch to numpy/scipy.  Per-cell arrays longer than
-        ``n_cells`` carry padding rows and are trimmed."""
+        ``n_cells`` carry padding rows and are trimmed; cell-sharded
+        arrays (``data/sharded.py``) are gathered in row order."""
         n = self.n_cells
 
         def fetch(v, trim=False):
+            if isinstance(v, ShardedRows):
+                v, trim = v.gather("cpu"), True
             if isinstance(v, SparseCells):
                 return v.to_scipy_csr()
             if isinstance(v, torch.Tensor):
@@ -155,6 +170,8 @@ class CellData:
         obsm/varm and every layer are sliced consistently
         (``ops.hvg.select_genes_device``, ``ops.qc.select_cells_device``);
         obsp is dropped on a cell subset."""
+        if is_sharded(self):
+            raise NotImplementedError(SHARDED_TODO)
         if isinstance(key, tuple):
             if len(key) > 2:
                 raise IndexError("CellData supports at most 2 axes")

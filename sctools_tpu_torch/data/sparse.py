@@ -83,6 +83,21 @@ class SparseCells:
             self.data.to(device, non_blocking=non_blocking),
             self.n_cells, self.n_genes)
 
+    def pad_rows_to(self, rows: int) -> "SparseCells":
+        """Empty rows (sentinel ids, zero values) appended up to
+        ``rows``; ``self`` when it has as many already."""
+        extra = rows - self.rows_padded
+        if extra <= 0:
+            return self
+        cap = self.capacity
+        ind = torch.full((extra, cap), self.sentinel,
+                         dtype=self.indices.dtype, device=self.device)
+        dat = torch.zeros((extra, cap), dtype=self.data.dtype,
+                          device=self.device)
+        return SparseCells(torch.cat([self.indices, ind]),
+                           torch.cat([self.data, dat]), self.n_cells,
+                           self.n_genes)
+
     def pin_memory(self) -> "SparseCells":
         """Page-locked host copies of both planes (the source of an
         asynchronous host-to-device copy)."""
@@ -226,17 +241,56 @@ def segment_reduce(x: SparseCells, slot_values_fn, d: int, dtype=None,
     """Gene-axis reduction: accumulates the segment sum by gene id of
     ``slot_values_fn(ind_blk, dat_blk, row_offset) -> (rows, capacity,
     d)`` over row chunks into a ``(n_genes, d)`` result.  Each chunk is
-    summed on its own and then added to the total, as the reference's
-    scan does."""
+    summed on its own (:func:`_gene_segment_sum`, in a fixed order) and
+    then added to the total, as the reference's scan does, so the
+    result repeats its bits on every device."""
     dtype = dtype or x.data.dtype
-    G1 = x.n_genes + 1
-    acc = torch.zeros((G1, d), dtype=dtype, device=x.device)
+    acc = torch.zeros((x.n_genes, d), dtype=dtype, device=x.device)
     for r0, ind, dat in _row_chunks(x, block):
         vals = slot_values_fn(ind, dat, r0)
-        part = torch.zeros((G1, d), dtype=dtype, device=x.device)
-        part.index_add_(0, ind.reshape(-1), vals.reshape(-1, d))
-        acc = acc + part
-    return acc[: x.n_genes]
+        acc = acc + _gene_segment_sum(ind, vals.reshape(-1, d).to(dtype),
+                                      x.n_genes)
+    return acc
+
+
+#: rows of a first-level segment of :func:`_gene_segment_sum` on the
+#: card: no thread's sequential sum there runs longer than this many
+#: slots (``segment_sweep.py``)
+_SEG_ROWS = 32
+
+
+def _gene_segment_sum(ind: torch.Tensor, vals: torch.Tensor,
+                      n_genes: int, seg_rows: int | None = None
+                      ) -> torch.Tensor:
+    """Sums of ``vals`` (rows · capacity, d) by gene id ``ind`` (rows,
+    capacity), in a fixed order on every device (the card's
+    ``index_add_`` would add them in no fixed order): first each gene's
+    slots within each block of ``seg_rows`` rows, in row order (a
+    stable sort by block and id, then ``torch.segment_reduce``, whose
+    sum of a segment is one sequential loop), then the blocks' sums by
+    one sum over the block axis.  Empty slots go to segments of their
+    own, ``seg_rows`` consecutive slots each.  ``seg_rows`` None is
+    ``_SEG_ROWS`` on the card, which bounds each thread's loop, and all
+    the rows on the CPU, where a gene's slots then add in row order, as
+    the reference's scatter adds them there.  (n_genes, d)."""
+    rows, cap = ind.shape
+    if seg_rows is None:
+        seg_rows = _SEG_ROWS if ind.is_cuda else rows
+    n_blk = -(-rows // seg_rows)
+    slot = torch.arange(rows * cap, device=ind.device,
+                        dtype=torch.int32).view(rows, cap)
+    key = torch.where(ind == n_genes, n_blk * n_genes + slot // seg_rows,
+                      slot // (cap * seg_rows) * n_genes + ind).reshape(-1)
+    key, order = torch.sort(key, stable=True)
+    # segment lengths from the sorted ids, with no host sync (bincount
+    # and segment_reduce's own length checks read the card)
+    n_seg = n_blk * n_genes + -(-rows * cap // seg_rows)
+    ends = torch.searchsorted(key, torch.arange(
+        1, n_seg + 1, device=key.device, dtype=key.dtype))
+    lengths = torch.diff(ends, prepend=ends.new_zeros(1))
+    seg = torch.segment_reduce(vals[order], "sum", lengths=lengths, axis=0,
+                               unsafe=True)
+    return seg[:n_blk * n_genes].view(n_blk, n_genes, -1).sum(dim=0)
 
 
 def _rows_of(ind: torch.Tensor, row_offset: int) -> torch.Tensor:
@@ -311,26 +365,40 @@ def gene_moments(x: SparseCells):
     with the means, sums the non-negative ``(x−μ)²`` of stored entries
     and adds the zeros' ``(n−nnz)·μ²``."""
     n_cells = x.n_cells
-
-    def valid_of(ind, row_offset):
-        return ((ind != x.sentinel)
-                & (_rows_of(ind, row_offset) < n_cells)[:, None])
-
-    def slot_sums(ind, dat, row_offset):
-        return torch.stack([dat, valid_of(ind, row_offset).to(dat.dtype)],
-                           dim=2)
-
-    out1 = segment_reduce(x, slot_sums, 2)
+    out1 = gene_sums_nnz(x)
     s, nnz = out1[:, 0], out1[:, 1]
     mu = s / max(n_cells, 1)
+    m2 = gene_centred_sq(x, mu)
+    m2 = m2 + torch.clamp(n_cells - nnz, min=0.0) * mu * mu
+    return mu, m2, nnz
+
+
+def _valid_of(x: SparseCells, ind, row_offset):
+    return ((ind != x.sentinel)
+            & (_rows_of(ind, row_offset) < x.n_cells)[:, None])
+
+
+def gene_sums_nnz(x: SparseCells) -> torch.Tensor:
+    """Per gene (sum, stored entries) over valid cells, (n_genes, 2):
+    the first pass of :func:`gene_moments`."""
+
+    def slot_sums(ind, dat, row_offset):
+        return torch.stack([dat, _valid_of(x, ind, row_offset)
+                            .to(dat.dtype)], dim=2)
+
+    return segment_reduce(x, slot_sums, 2)
+
+
+def gene_centred_sq(x: SparseCells, mu: torch.Tensor) -> torch.Tensor:
+    """Per gene Σ (x − μ)² over the stored entries of valid cells: the
+    second pass of :func:`gene_moments` (the zeros' ``(n − nnz)·μ²``
+    is the caller's)."""
     mu_pad = torch.cat([mu, torch.zeros((1,), dtype=mu.dtype,
                                         device=mu.device)])
 
     def slot_sq(ind, dat, row_offset):
-        dev = torch.where(valid_of(ind, row_offset),
+        dev = torch.where(_valid_of(x, ind, row_offset),
                           dat - mu_pad[ind.long()], 0.0)
         return (dev * dev)[:, :, None]
 
-    m2 = segment_reduce(x, slot_sq, 1)[:, 0]
-    m2 = m2 + torch.clamp(n_cells - nnz, min=0.0) * mu * mu
-    return mu, m2, nnz
+    return segment_reduce(x, slot_sq, 1)[:, 0]

@@ -26,8 +26,14 @@ the next shard on the host, copies it into pinned memory and sends the
 host-to-device copy on a side CUDA stream while the card computes on
 the current one; the consumer waits on the copy's event.
 
-Multi-card streaming (``mesh=``) is not ported: ROADMAP.md Queue 1
-item 9.
+With ``mesh=`` (``ShardSource.with_mesh``, ``stream_pipeline(mesh=)``)
+every shard is cut into one row block a device of the mesh
+(``data/sharded.py``): each per-shard program runs on every block on
+that block's device, per-cell outputs stay row-local, and per-gene
+partials are added in mesh order (``sharded.reduce_sum``, the
+counterpart of GSPMD's ``psum``).  The PCA's (n, L) iterate stays in
+per-device row blocks, orthonormalised by the Gram-reduced CholeskyQR2,
+and the kNN runs as ``knn_multichip_arrays``' ring over the mesh.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import dataclasses
 import os
 import queue
 import threading
-from typing import Callable, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -47,10 +53,8 @@ from ..utils.checkpoint import (clear_npz_generations,
                                 save_npz_generations)
 from ..utils.failsafe import TRANSIENT, classify_error
 from ..utils.vclock import SYSTEM_CLOCK
-from .sparse import SparseCells, segment_reduce, spmm, spmm_t
-
-_MESH_TODO = ("multi-card streaming (mesh=) is not ported yet: ROADMAP.md "
-              "Queue 1 item 9")
+from .sharded import ShardedRows, reduce_sum, split_blocks
+from .sparse import SparseCells, row_sum, segment_reduce, spmm, spmm_t
 
 #: identity fingerprints of the two passes' resume files, which go
 #: through the verified, generation-rotating npz layer (a stream_pca file
@@ -228,6 +232,53 @@ def _consume_on_current_stream(shard: SparseCells, done) -> SparseCells:
     return shard
 
 
+def _copy_to_mesh(shard: SparseCells, mesh, streams: dict):
+    """A host shard cut into the mesh's row blocks, each pinned and
+    copied to its device on that device's side stream (``streams``),
+    with an event recorded there for each block.  Returns the
+    ShardedRows and the events, block by block."""
+    host = split_blocks(shard, _cpu_mesh(mesh.size))
+    blocks, events = [], []
+    for b, dev in zip(host.blocks, mesh.devices):
+        out, done = _copy_to_card(b, dev, streams[dev])
+        blocks.append(out)
+        events.append(done)
+    return ShardedRows(tuple(blocks), mesh, shard.n_cells), events
+
+
+def _cpu_mesh(p: int):
+    from ..parallel.mesh import Mesh
+
+    return Mesh(("cpu",) * p)
+
+
+def _blocks(x) -> tuple:
+    """The row blocks of a shard: its mesh blocks, or the shard alone."""
+    return x.blocks if isinstance(x, ShardedRows) else (x,)
+
+
+def _block_sum(x, fn, *tables) -> torch.Tensor:
+    """``fn(block, *tables)`` for every block of shard ``x``, each table
+    on the block's device, added in mesh order on the first block's
+    device (one block: its result as it is)."""
+    blocks = _blocks(x)
+    return reduce_sum([fn(b, *(t.to(b.device) for t in tables))
+                       for b in blocks], blocks[0].device)
+
+
+def _shard_target(x, target_sum):
+    """The library-size target of a shard's blocks: ``target_sum``, or
+    where it is None on a meshed shard the median of the whole shard's
+    totals (gathered), as one block would take it."""
+    if target_sum is not None or not isinstance(x, ShardedRows):
+        return target_sum
+    from ..ops.normalize import _median
+
+    totals = torch.cat([row_sum(b)[:b.n_cells].to(x.device)
+                        for b in x.blocks])
+    return float(_median(totals))
+
+
 # ----------------------------------------------------------------------
 # Shard sources
 # ----------------------------------------------------------------------
@@ -254,6 +305,8 @@ class ShardSource:
     # the prefetch worker's stall, overlap and retry totals
     counters: StreamCounters = dataclasses.field(
         default_factory=StreamCounters)
+    # with_mesh's mesh: every shard cut into one row block a device
+    mesh: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -279,12 +332,21 @@ class ShardSource:
 
         offset = start_shard * self.shard_rows
         dev = self.device
+        mesh = self.mesh
         if not self.prefetch:
             for shard in host_iter():
-                yield offset, shard.to(dev)
+                yield offset, (shard.to(dev) if mesh is None
+                               else split_blocks(shard, mesh))
                 offset += shard.n_cells
             return
-        if dev.type == "cuda":
+        if mesh is not None and dev.type == "cuda":
+            # one side stream a device, an event a block
+            streams = {d: torch.cuda.Stream(device=d)
+                       for d in dict.fromkeys(mesh.devices)}
+            prepare = lambda s: _copy_to_mesh(s, mesh, streams)  # noqa: E731
+        elif mesh is not None:
+            prepare = lambda s: (split_blocks(s, mesh), None)  # noqa: E731
+        elif dev.type == "cuda":
             side = torch.cuda.Stream(device=dev)
             prepare = lambda s: _copy_to_card(s, dev, side)  # noqa: E731
         else:
@@ -294,13 +356,47 @@ class ShardSource:
                 host_iter, depth=self.prefetch_depth, prepare=prepare,
                 on_stall=c.add_stall, on_overlap=c.add_overlap,
                 on_retry=c.add_retry):
-            if done is not None:
+            if isinstance(done, list):
+                for b, ev in zip(shard.blocks, done):
+                    _consume_on_current_stream(b, ev)
+            elif done is not None:
                 shard = _consume_on_current_stream(shard, done)
             yield offset, shard
             offset += shard.n_cells
 
     def with_mesh(self, mesh) -> "ShardSource":
-        raise NotImplementedError(_MESH_TODO)
+        """A copy of this source whose shards are cut into
+        ``mesh.size`` equal row blocks, block d on ``mesh.devices[d]``
+        (a ``data/sharded.py:ShardedRows``; views with no copy where the
+        shard already lies on that device).  ``shard_rows`` must be a
+        multiple of mesh size × sublane, so that every shard but the
+        last splits as it is; the last is padded to that multiple.
+        ``factory_from`` is wrapped too, so checkpoint and resume
+        compose with the mesh.  With ``prefetch`` each block is copied
+        on its device's side stream and waited for by its own event.
+        The mesh's devices must be of this source's kind."""
+        p = mesh.size
+        mult = p * config.sublane
+        if self.shard_rows % mult:
+            raise ValueError(
+                f"shard_rows={self.shard_rows} must be a multiple of mesh "
+                f"size × sublane = {mult} to shard evenly")
+        if mesh.devices[0].type != self.device.type:
+            raise ValueError(
+                f"with_mesh: the source's shards are for {self.device}, the "
+                f"mesh's devices are {mesh.devices[0].type} devices")
+        base = self.factory
+        base_from = self.factory_from
+
+        def pad(it):
+            for shard in it:
+                yield shard.pad_rows_to(round_up(shard.rows_padded, mult))
+
+        return dataclasses.replace(
+            self, factory=lambda: pad(base()),
+            factory_from=(None if base_from is None
+                          else lambda k: pad(base_from(k))),
+            device=mesh.devices[0], mesh=mesh)
 
     @property
     def n_shards(self) -> int:
@@ -368,27 +464,20 @@ def _valid_slots(x: SparseCells, ind: torch.Tensor, row_offset: int):
     return (ind != x.sentinel) & (rows < x.n_cells)[:, None]
 
 
-def _shard_stats(x: SparseCells, mito_mask: torch.Tensor,
-                 target_sum: float):
-    """One shard: per-cell totals, genes and mito percentage, and per
-    gene the columns ``[s_raw, m2_raw, s_norm, m2_norm, nnz]`` of the
-    raw counts and the log1p-normalised values.
-
-    The second moments are centred on the shard's own gene means,
-    ``m2 = Σ_valid (x − μ)² + (n − nnz)·μ²``: sums of non-negative f32
-    terms, with no cancellation (Σx² − n·μ² in f32 loses every digit
-    of a low-dispersion gene).  Shards combine in float64 by Chan's
-    update (:func:`stream_stats`)."""
+def _block_cells(x: SparseCells, mito_mask: torch.Tensor, target):
+    """Row-local half of :func:`_shard_stats` on one block: per-cell
+    totals, genes and mito percentage (the valid rows), the
+    log1p-normalised values, and per gene ``[s_raw, s_norm, nnz]``."""
     from ..ops.normalize import _library_size_sparse
 
     totals = x.data.sum(dim=1)
     n_genes_cell = x.nnz_per_row()
     zero = torch.zeros((1,), dtype=x.data.dtype, device=x.device)
-    mito_pad = torch.cat([mito_mask.to(x.data.dtype), zero])
+    mito_pad = torch.cat([mito_mask.to(x.device).to(x.data.dtype), zero])
     mito_counts = (x.data * mito_pad[x.indices.long()]).sum(dim=1)
     pct_mito = torch.where(totals > 0, 100.0 * mito_counts
                            / torch.clamp(totals, min=1e-12), 0.0)
-    xs, _ = _library_size_sparse(x, target_sum)
+    xs, _ = _library_size_sparse(x, target)
     xn_data = torch.log1p(xs.data)
 
     def slot_sums(ind, dat, row_offset):
@@ -396,11 +485,14 @@ def _shard_stats(x: SparseCells, mito_mask: torch.Tensor,
         blk = xn_data[row_offset:row_offset + ind.shape[0]]
         return torch.stack([dat, blk, valid.to(dat.dtype)], dim=2)
 
-    sums = segment_reduce(x, slot_sums, 3)
-    s_raw, s_norm, nnz = sums[:, 0], sums[:, 1], sums[:, 2]
-    inv_n = 1.0 / max(x.n_cells, 1)
-    mu_raw_pad = torch.cat([s_raw * inv_n, zero])
-    mu_norm_pad = torch.cat([s_norm * inv_n, zero])
+    n = x.n_cells
+    cells = (totals[:n], n_genes_cell[:n], pct_mito[:n])
+    return cells, xn_data, segment_reduce(x, slot_sums, 3)
+
+
+def _block_sq(x: SparseCells, xn_data, mu_raw_pad, mu_norm_pad):
+    """Per gene Σ (x − μ)² of one block's stored raw and normalised
+    values, about the shard's means."""
 
     def slot_sq(ind, dat, row_offset):
         valid = _valid_slots(x, ind, row_offset)
@@ -410,13 +502,41 @@ def _shard_stats(x: SparseCells, mito_mask: torch.Tensor,
         dn = torch.where(valid, blk - mu_norm_pad[il], 0.0)
         return torch.stack([dr * dr, dn * dn], dim=2)
 
-    sq = segment_reduce(x, slot_sq, 2)
+    return segment_reduce(x, slot_sq, 2)
+
+
+def _shard_stats(x, mito_mask: torch.Tensor, target_sum: float):
+    """One shard (a ``SparseCells`` or a meshed ``ShardedRows``): per
+    block the per-cell ``(totals, genes, mito percentage)`` of its valid
+    rows, and per gene the columns ``[s_raw, m2_raw, s_norm, m2_norm,
+    nnz]`` of the raw counts and the log1p-normalised values.
+
+    The second moments are centred on the shard's own gene means,
+    ``m2 = Σ_valid (x − μ)² + (n − nnz)·μ²``: sums of non-negative f32
+    terms, with no cancellation (Σx² − n·μ² in f32 loses every digit
+    of a low-dispersion gene).  On a mesh each block sums on its device
+    and the partials are added in mesh order, the means taken from the
+    whole shard's sums before the centred pass.  Shards combine in
+    float64 by Chan's update (:func:`stream_stats`)."""
+    blocks = _blocks(x)
+    dev0 = blocks[0].device
+    target = _shard_target(x, target_sum)
+    halves = [_block_cells(b, mito_mask, target) for b in blocks]
+    sums = reduce_sum([h[2] for h in halves], dev0)
+    s_raw, s_norm, nnz = sums[:, 0], sums[:, 1], sums[:, 2]
+    inv_n = 1.0 / max(x.n_cells, 1)
+    zero = torch.zeros((1,), dtype=sums.dtype, device=dev0)
+    mu_raw_pad = torch.cat([s_raw * inv_n, zero])
+    mu_norm_pad = torch.cat([s_norm * inv_n, zero])
+    sq = reduce_sum([_block_sq(b, h[1], mu_raw_pad.to(b.device),
+                               mu_norm_pad.to(b.device))
+                     for b, h in zip(blocks, halves)], dev0)
     zeros = torch.clamp(x.n_cells - nnz, min=0.0)
     mu_raw, mu_norm = mu_raw_pad[:-1], mu_norm_pad[:-1]
     m2_raw = sq[:, 0] + zeros * mu_raw * mu_raw
     m2_norm = sq[:, 1] + zeros * mu_norm * mu_norm
     stats = torch.stack([s_raw, m2_raw, s_norm, m2_norm, nnz], dim=1)
-    return totals, n_genes_cell, pct_mito, stats
+    return [h[0] for h in halves], stats
 
 
 def stream_stats(src, target_sum: float = 1e4,
@@ -462,19 +582,20 @@ def stream_stats(src, target_sum: float = 1e4,
             shard_sizes.append(int(n_i))
 
     def fetch(t):
+        if isinstance(t, list):  # a shard's blocks, in row order
+            return np.concatenate([p.cpu().numpy() for p in t])
         return t.cpu().numpy() if isinstance(t, torch.Tensor) else t
 
     for k, (_, shard) in enumerate(src.iter_from(start_shard),
                                    start=start_shard):
-        t, g, m, stats = _shard_stats(shard, mito, target_sum)
-        n = shard.n_cells
+        cells, stats = _shard_stats(shard, mito, target_sum)
         # device tensors until after the loop: a fetch here would make
         # the host wait for the card at every shard
-        totals.append(t[:n])
-        ngenes.append(g[:n])
-        pct.append(m[:n])
+        totals.append([c[0] for c in cells])
+        ngenes.append([c[1] for c in cells])
+        pct.append([c[2] for c in cells])
         shard_stats.append(stats)
-        shard_sizes.append(n)
+        shard_sizes.append(shard.n_cells)
         if checkpoint is not None:
             for lst in (totals, ngenes, pct, shard_stats):
                 lst[-1] = fetch(lst[-1])
@@ -598,7 +719,8 @@ def stream_hvg_scores(stats: dict, flavor: str = "seurat_v3", src=None,
         inv_std = torch.from_numpy((1.0 / std).astype(np.float32)).to(dev)
         ssq = np.zeros(src.n_genes)
         for _, shard in src:
-            part = _shard_clipped_ssq(shard, mu_over_std, inv_std, clip)
+            part = _block_sum(shard, lambda b, m, i: _shard_clipped_ssq(
+                b, m, i, clip), mu_over_std, inv_std)
             ssq += part.cpu().numpy().astype(np.float64)
         ssq += (n - stats["gene_nnz"]) * np.clip(-mean / std, -clip,
                                                  clip) ** 2
@@ -632,7 +754,8 @@ def stream_hvg_scores(stats: dict, flavor: str = "seurat_v3", src=None,
         p_pad = torch.from_numpy(
             np.concatenate([p, [0.0]]).astype(np.float32)).to(dev)
         for _, shard in src:
-            corr = _shard_pearson_corr(shard, p_pad, theta, clip)
+            corr = _block_sum(shard, lambda b, p: _shard_pearson_corr(
+                b, p, theta, clip), p_pad)
             corr = corr.cpu().numpy().astype(np.float64)
             S += corr[:, 0]
             Q += corr[:, 1]
@@ -688,17 +811,6 @@ def _shard_rmatvec(x: SparseCells, mapping, mu, Q, target_sum: float,
     return spmm_t(sub, Qm) - torch.outer(mu, colsum)
 
 
-def _assemble_rows(blocks, n_rows: int) -> torch.Tensor:
-    """Stack per-shard (rows_padded, L) blocks into one (n_rows, L)."""
-    trimmed = []
-    got = 0
-    for b in blocks:
-        take = min(b.shape[0], n_rows - got)
-        trimmed.append(b[:take])
-        got += take
-    return torch.cat(trimmed, dim=0)
-
-
 def stream_pca(src, gene_idx: np.ndarray, gene_mean: np.ndarray,
                n_components: int = 50, oversample: int = 10,
                n_iter: int = 2, target_sum: float = 1e4,
@@ -722,10 +834,19 @@ def stream_pca(src, gene_idx: np.ndarray, gene_mean: np.ndarray,
     Q is recomputed from the carrier by one matvec sweep and the
     rmatvec continues at the first shard not yet done, with the same
     bits.  The files go through the verified npz layer as
-    :func:`stream_stats`' do."""
-    from ..ops.pca import cholesky_qr
+    :func:`stream_stats`' do.
+
+    Q stays in row blocks, one a device of a meshed source
+    (``with_mesh``; device d holds block d of every shard) and one in
+    all without a mesh, orthonormalised by the Gram-reduced CholeskyQR2
+    (``ops.pca.cholesky_qr_blocks``); each shard's rmatvec partial is
+    the mesh-order sum of its blocks' ``(g_sub, L)`` products.  On a
+    mesh the scores come back as a ``ShardedRows`` of per-device blocks
+    (``gather()`` puts the rows in order)."""
+    from ..ops.pca import cholesky_qr, cholesky_qr_blocks
 
     dev = src.device
+    mesh = getattr(src, "mesh", None)
     gene_idx = np.asarray(gene_idx)
     g_sub = len(gene_idx)
     mapping = np.full(src.n_genes + 1, g_sub, np.int32)
@@ -736,9 +857,22 @@ def stream_pca(src, gene_idx: np.ndarray, gene_mean: np.ndarray,
     L = n_components + oversample
 
     def matvec_all(V):
-        blocks = [_shard_matvec(sh, mapping, mu, V, target_sum, g_sub)
-                  for _, sh in src]
-        return _assemble_rows(blocks, src.n_cells)
+        # one list of per-device blocks a shard
+        shards = [[_shard_matvec(b, mapping.to(b.device), mu.to(b.device),
+                                 V.to(b.device), _shard_target(
+                                     sh, target_sum), g_sub)
+                   for b in _blocks(sh)] for _, sh in src]
+        return cholesky_qr_blocks([torch.cat(p) for p in zip(*shards)], dev)
+
+    def shard_rmatvec(sh, Q, offset):
+        # shard s's block d starts at row s·m of device d's Q block, m
+        # the shard's rows over the blocks
+        a = offset // len(Q)
+        target = _shard_target(sh, target_sum)
+        return reduce_sum([_shard_rmatvec(
+            b, mapping.to(b.device), mu.to(b.device),
+            q[a:a + b.rows_padded], target, g_sub)
+            for b, q in zip(_blocks(sh), Q)], dev)
 
     start_round, start_shard, acc0 = 0, 0, None
     z = (load_npz_generations(checkpoint, fingerprint=_PCA_FP)
@@ -770,12 +904,7 @@ def stream_pca(src, gene_idx: np.ndarray, gene_mean: np.ndarray,
         if acc is None:
             acc = torch.zeros((g_sub, L), dtype=torch.float32, device=dev)
         for offset, sh in src.iter_from(first_shard):
-            q_blk = Q[offset: offset + sh.rows_padded]
-            if q_blk.shape[0] < sh.rows_padded:  # the last shard's padding
-                q_blk = torch.cat([q_blk, torch.zeros(
-                    (sh.rows_padded - q_blk.shape[0], L), device=dev)])
-            acc = acc + _shard_rmatvec(sh, mapping, mu, q_blk,
-                                       target_sum, g_sub)
+            acc = acc + shard_rmatvec(sh, Q, offset)
             if checkpoint is not None:
                 save_npz_generations(
                     checkpoint, fingerprint=_PCA_FP, n_cells=src.n_cells,
@@ -786,7 +915,7 @@ def stream_pca(src, gene_idx: np.ndarray, gene_mean: np.ndarray,
         return acc
 
     for rnd in range(start_round, n_iter + 1):
-        Q = cholesky_qr(matvec_all(carrier))
+        Q = matvec_all(carrier)
         zacc = rmatvec_all(Q, rnd,
                            acc=acc0 if rnd == start_round else None,
                            first_shard=(start_shard if rnd == start_round
@@ -797,10 +926,32 @@ def stream_pca(src, gene_idx: np.ndarray, gene_mean: np.ndarray,
     k = n_components
     with true_f32():
         U_b, S, Vt = torch.linalg.svd(zacc.T, full_matrices=False)
-        scores = (Q @ U_b[:, :k]) * S[:k]
+        W = U_b[:, :k]
+        scores = [(q @ W.to(q.device)) * S[:k].to(q.device) for q in Q]
+    scores = (scores[0][:src.n_cells] if mesh is None else ShardedRows(
+        tuple(scores), mesh, src.n_cells, _stream_pieces(src, len(Q[0]))))
     if checkpoint is not None:
         clear_npz_generations(checkpoint)  # state is stale
     return scores, Vt[:k].T, (S[:k] ** 2) / max(src.n_cells - 1, 1)
+
+
+def _stream_pieces(src, q_rows: int) -> tuple:
+    """The ``(device, start, stop)`` row slices, in row order, of the
+    valid rows of a meshed stream's per-device blocks of ``q_rows``
+    rows: shard s's block d holds its rows from ``s·m`` on, m the
+    shard's rows over P (the last shard's blocks hold what is left)."""
+    p = src.mesh.size
+    m = src.shard_rows // p
+    last = src.n_shards - 1
+    pieces = []
+    for s in range(src.n_shards):
+        n_s = min(src.shard_rows, src.n_cells - s * src.shard_rows)
+        m_s = m if s < last else q_rows - last * m
+        for d in range(p):
+            v = max(0, min(m_s, n_s - d * m_s))
+            if v:
+                pieces.append((d, s * m, s * m + v))
+    return tuple(pieces)
 
 
 # ----------------------------------------------------------------------
@@ -827,21 +978,40 @@ def stream_pipeline(src, *, n_top: int = 2000, n_components: int = 50,
     cells (its padded rows), or with ``knn_chunk`` query chunks of that
     many cells (``iter_knn_chunks``, one row per cell), each one kernel
     launch against all cells.
+
+    With ``mesh=`` the source is placed on the mesh (``with_mesh``:
+    every shard cut into one row block a device, each per-shard program
+    run on every block, per-gene partials added in mesh order), and the
+    kNN is ``knn_multichip_arrays``' ring over the mesh (P² searches;
+    ``refine`` does not apply) on the scores, gathered once in row
+    order on the mesh's first device, which ``device`` must be.  Padded
+    rows as in ``neighbors.knn_multichip``: id -1 past ``n_cells``.
+    The reference reaches that op through its plan layer, which the
+    port does not have yet; this calls it directly.
     ``checkpoint_dir`` makes the stats and PCA passes resumable (see
     :func:`stream_stats`); ``prefetch_depth`` overrides a
     ``ShardSource``'s queue depth; ``omega`` and ``seed`` go to
     :func:`stream_pca`."""
     from ..ops.knn import iter_knn_chunks, knn_arrays
 
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     dev = resolve_device(device)
     if src.device != dev:
         raise ValueError(
             f"stream_pipeline: the source's shards lie on {src.device}, "
             f"not on device={dev}")
+    if mesh is not None:
+        if knn_chunk is not None:
+            raise ValueError(
+                "stream_pipeline: knn_chunk= applies to the single-device "
+                "search only; the mesh path runs the ring kNN (drop one)")
+        if _indexed(dev) != _indexed(mesh.devices[0]):
+            raise ValueError(
+                f"stream_pipeline: device={dev} is not the mesh's first "
+                f"device {mesh.devices[0]}")
     if prefetch_depth is not None:
         src = dataclasses.replace(src, prefetch_depth=prefetch_depth)
+    if mesh is not None:
+        src = src.with_mesh(mesh)
     ck_stats = ck_pca = None
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -853,7 +1023,14 @@ def stream_pipeline(src, *, n_top: int = 2000, n_components: int = 50,
     scores, comps, expl = stream_pca(
         src, hvg_genes, stats["gene_mean"], n_components=n_components,
         target_sum=target_sum, checkpoint=ck_pca, omega=omega, seed=seed)
-    if knn_chunk is None:
+    if mesh is not None:
+        from ..parallel.knn_multichip import knn_multichip_arrays
+
+        scores = scores.gather()
+        idx, dist = knn_multichip_arrays(scores, k=k, metric=metric,
+                                         mesh=mesh, n_valid=src.n_cells,
+                                         strategy="ring")
+    elif knn_chunk is None:
         idx, dist = knn_arrays(scores, scores, k=k, metric=metric,
                                n_query=src.n_cells, n_cand=src.n_cells,
                                refine=refine)
@@ -875,3 +1052,10 @@ def stream_pipeline(src, *, n_top: int = 2000, n_components: int = 50,
         "knn_distances": dist,
         "n_cells": src.n_cells,
     }
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its index: ``cuda`` is the current card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

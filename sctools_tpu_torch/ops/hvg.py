@@ -23,12 +23,16 @@ flavor takes a dense X too.  The streamed ranking
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..config import config, resolve_device, round_up, true_f32
 from ..data.dataset import CellData
-from ..data.sparse import SparseCells, gene_moments, segment_reduce
+from ..data.sharded import ShardedRows, reduce_sum, valid_blocks
+from ..data.sparse import (SparseCells, gene_centred_sq, gene_sums_nnz,
+                           segment_reduce)
 from ..registry import register
 from .qc import _matrix_X
 
@@ -75,6 +79,9 @@ def _subset_genes_matrix(M, gene_idx: np.ndarray, compact: bool):
 
     if sp.issparse(M):
         return M.tocsc()[:, gene_idx].tocsr()
+    if isinstance(M, ShardedRows):  # the gene axis is whole in each block
+        return M.map_blocks(
+            lambda b, d: _subset_genes_matrix(b, gene_idx, compact))
     if isinstance(M, SparseCells):
         cap = None
         if compact:
@@ -117,15 +124,40 @@ _DENSE_ROWS = 8192  # rows a tile of the dense per-gene passes
 
 def _gene_moments(X):
     """Per-gene mean, (ddof=1) variance and nnz over cells, of a
-    SparseCells or a dense X."""
-    if isinstance(X, SparseCells):
-        mean, m2, nnz = gene_moments(X)
-        var = m2 / max(X.n_cells - 1, 1)
-    else:
-        mean = X.mean(dim=0)
-        var = X.var(dim=0, correction=1)
-        nnz = (X != 0).sum(dim=0).to(mean.dtype)
-    return mean, torch.clamp(var, min=0.0), nnz
+    SparseCells, a dense X or a ShardedRows of either.  Sparse: the two
+    passes of ``sparse.gene_moments`` (sums and nnz, then the centred
+    squares), each the mesh-order sum of its blocks' partials
+    (``reduce_sum``).  Dense: each block's own mean and variance,
+    folded in mesh order by Chan's update."""
+    blocks = valid_blocks(X)
+    dev = blocks[0].device
+    if not isinstance(blocks[0], SparseCells):
+        nnz = reduce_sum([(b != 0).sum(dim=0).to(b.dtype) for b in blocks],
+                         dev)
+        _, mean, var = functools.reduce(_chan, [
+            (b.shape[0], b.mean(dim=0).to(dev), (
+                b.var(dim=0, correction=1) if b.shape[0] > 1
+                else torch.zeros(b.shape[1], device=b.device)).to(dev))
+            for b in blocks if b.shape[0]])
+        return mean, torch.clamp(var, min=0.0), nnz
+    n = X.n_cells
+    first = reduce_sum([gene_sums_nnz(b) for b in blocks], dev)
+    s, nnz = first[:, 0], first[:, 1]
+    mean = s / max(n, 1)
+    m2 = reduce_sum([gene_centred_sq(b, mean.to(b.device)) for b in blocks],
+                    dev)
+    m2 = m2 + torch.clamp(n - nnz, min=0.0) * mean * mean
+    return mean, torch.clamp(m2 / max(n - 1, 1), min=0.0), nnz
+
+
+def _chan(a: tuple, b: tuple) -> tuple:
+    """Two blocks' ``(rows, mean, ddof=1 variance)`` as one (Chan et
+    al.'s pairwise update)."""
+    (na, ma, va), (nb, mb, vb) = a, b
+    n = na + nb
+    d = mb - ma
+    m2 = va * (na - 1) + vb * (nb - 1) + d * d * (na * nb / n)
+    return n, ma + d * (nb / n), m2 / max(n - 1, 1)
 
 
 def _fit_mean_var_trend(mean: torch.Tensor, var: torch.Tensor
@@ -229,16 +261,11 @@ def _cell_ranger_scores_np(mean, var, min_bins: int = 3) -> np.ndarray:
 # ----------------------------------------------------------------------
 
 
-def _seurat_v3_scores(X, mean, var, nnz, n: int) -> torch.Tensor:
-    """Clipped standardised variance against the mean-variance trend:
-    Σ_c min(clip, (x − μ)/σ)² / (n − 1), clip = sqrt(n)."""
-    with true_f32():
-        trend = _fit_mean_var_trend(mean, var)
-    std = torch.clamp(torch.sqrt(trend), min=1e-12)
-    clip = torch.sqrt(torch.tensor(float(n), device=mean.device))
+def _clipped_ssq(X, mean, std, clip) -> torch.Tensor:
+    """Σ min(clip, (x − μ)/σ)² per gene over the stored entries of a
+    SparseCells (the zeros' term is the caller's) or every row of a
+    dense X."""
     if isinstance(X, SparseCells):
-        # stored entries in one chunked pass; the zeros' term is
-        # (n − nnz)·min(clip, μ/σ)²
         zero = torch.zeros((1,), device=X.device)
         table_mu = torch.cat([mean / std, zero])
         table_inv = torch.cat([1.0 / std, zero])
@@ -250,15 +277,30 @@ def _seurat_v3_scores(X, mean, var, nnz, n: int) -> torch.Tensor:
             ok = (ind != X.sentinel) & (rows < X.n_cells)[:, None]
             return torch.where(ok, z * z, 0.0)[:, :, None]
 
-        ssq_nnz = segment_reduce(X, slot_vals, 1)[:, 0]
+        return segment_reduce(X, slot_vals, 1)[:, 0]
+    ssq = torch.zeros_like(mean)
+    for r0 in range(0, X.shape[0], _DENSE_ROWS):
+        z = torch.clamp((X[r0:r0 + _DENSE_ROWS] - mean) / std, -clip, clip)
+        ssq += (z * z).sum(dim=0)
+    return ssq
+
+
+def _seurat_v3_scores(X, mean, var, nnz, n: int) -> torch.Tensor:
+    """Clipped standardised variance against the mean-variance trend:
+    Σ_c min(clip, (x − μ)/σ)² / (n − 1), clip = sqrt(n); over the
+    blocks of a ShardedRows, the clipped sums added in mesh order."""
+    with true_f32():
+        trend = _fit_mean_var_trend(mean, var)
+    std = torch.clamp(torch.sqrt(trend), min=1e-12)
+    clip = torch.sqrt(torch.tensor(float(n), device=mean.device))
+    blocks = valid_blocks(X)
+    ssq = reduce_sum([_clipped_ssq(b, mean.to(b.device), std.to(b.device),
+                                   clip.to(b.device)) for b in blocks],
+                     mean.device)
+    if isinstance(blocks[0], SparseCells):
+        # the zeros' term: (n − nnz)·min(clip, μ/σ)²
         zero_term = torch.clamp(-mean / std, -clip, clip) ** 2
-        ssq = ssq_nnz + (n - nnz) * zero_term
-    else:
-        ssq = torch.zeros_like(mean)
-        for r0 in range(0, X.shape[0], _DENSE_ROWS):
-            z = torch.clamp((X[r0:r0 + _DENSE_ROWS] - mean) / std, -clip,
-                            clip)
-            ssq += (z * z).sum(dim=0)
+        ssq = ssq + (n - nnz) * zero_term
     return torch.where((mean > 0) & (var > 0), ssq / max(n - 1, 1), 0.0)
 
 

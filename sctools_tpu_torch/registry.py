@@ -10,6 +10,12 @@ Every op takes ``device=``.  ``None`` means the card, and without a
 card the op raises (``config.resolve_device``) instead of running on
 the CPU; tests pass ``device="cpu"``.
 
+Cell-sharded data (``parallel.shard_celldata``) runs through an op's
+implementation for such data, registered with ``register_sharded``
+(``parallel/sharded_ops.py``); an op without one raises
+``NotImplementedError`` (ROADMAP.md Queue 1 item 9) and never gathers
+the blocks.
+
 ``fusable=``, ``mem_cost=``, ``mask_aware=``, ``sharding=`` and
 ``collective=`` are accepted and recorded so that ops declare what the
 reference's do, but nothing reads them yet: plans and buckets are not
@@ -21,9 +27,11 @@ from __future__ import annotations
 from typing import Callable
 
 from .config import resolve_device
+from .data.sharded import is_sharded
 
 _REGISTRY: dict[str, dict[str, Callable]] = {}
 _META: dict[str, dict[str, dict]] = {}
+_SHARDED: dict[str, Callable] = {}  # name -> its cell-sharded implementation
 
 DEFAULT_BACKEND = "cuda"
 
@@ -51,6 +59,18 @@ def register(name: str, backend: str = DEFAULT_BACKEND, fusable=False,
             "fusable": fusable, "mem_cost": mem_cost,
             "mask_aware": mask_aware, "sharding": sharding,
             "collective": collective}
+        return fn
+
+    return deco
+
+
+def register_sharded(name: str) -> Callable[[Callable], Callable]:
+    """Decorator: register ``fn`` as the implementation of ``name`` for
+    cell-sharded data (its ``device=`` the kind of the mesh's
+    devices)."""
+
+    def deco(fn: Callable) -> Callable:
+        _SHARDED[name] = fn
         return fn
 
     return deco
@@ -84,10 +104,24 @@ def metadata(name: str, backend: str = DEFAULT_BACKEND) -> dict:
     return dict(_META[name][backend])
 
 
+def _for_data(name: str, fn: Callable, data) -> Callable:
+    """``fn``, or for cell-sharded ``data`` ``name``'s sharded
+    implementation (raises where it has none)."""
+    if not is_sharded(data):
+        return fn
+    try:
+        return _SHARDED[name]
+    except KeyError:
+        from .data.dataset import SHARDED_TODO
+
+        raise NotImplementedError(f"{name}: {SHARDED_TODO}") from None
+
+
 def apply(name: str, data, *args, backend: str = DEFAULT_BACKEND,
           device=None, **kw):
     """Apply a registered transform to ``data`` and return the result."""
-    return get(name, backend)(data, *args, device=device, **kw)
+    fn = _for_data(name, get(name, backend), data)
+    return fn(data, *args, device=device, **kw)
 
 
 class Transform:
@@ -105,7 +139,8 @@ class Transform:
         self._fn = get(name, backend)  # fail fast on unknown name/backend
 
     def __call__(self, data, device=None, **overrides):
-        return self._fn(data, device=device, **{**self.params, **overrides})
+        fn = _for_data(self.name, self._fn, data)
+        return fn(data, device=device, **{**self.params, **overrides})
 
     def with_backend(self, backend: str) -> "Transform":
         return Transform(self.name, backend=backend, **self.params)
@@ -137,13 +172,17 @@ class Pipeline:
             fuse: bool = False):
         """Run all steps on ``device`` (``None``: the card; raises when
         there is none).  The data moves to the device first and stays
-        there between steps.  ``fuse=True`` (fused stages) is not
-        ported yet."""
+        there between steps.  Cell-sharded data
+        (``parallel.shard_celldata``) stays sharded on its mesh, whose
+        devices each step holds to ``device``'s kind; a step with no
+        sharded implementation raises.  ``fuse=True`` (fused stages) is
+        not ported yet."""
         if fuse:
             raise NotImplementedError(
                 "fused pipelines are not ported to sctools_tpu_torch yet")
         device = resolve_device(device)
-        data = data.to_device(device)
+        if not is_sharded(data):
+            data = data.to_device(device)
         for t in self.steps:
             if backend is not None and backend != t.backend:
                 t = t.with_backend(backend)

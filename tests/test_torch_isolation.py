@@ -43,6 +43,51 @@ def test_import_loads_no_jax_and_no_reference():
     assert r.stdout.strip() == "[]"
 
 
+def test_mesh_modules_load_no_jax_and_no_reference():
+    """The cell-sharded data, its ops and the multi-process bring-up
+    (some imported only when used) load neither jax nor the JAX
+    package."""
+    code = (
+        "import sys\n"
+        "import sctools_tpu_torch.data.sharded\n"
+        "import sctools_tpu_torch.parallel.sharded_ops\n"
+        "from sctools_tpu_torch.parallel.mesh import (init_distributed, "
+        "shard_celldata, coordination_sum, mesh_host_groups)\n"
+        "from sctools_tpu_torch.data.stream import ShardSource\n"
+        "import torch.distributed\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'sctools_tpu' or "
+        "m.startswith('sctools_tpu.'))\n"
+        "print(repr(bad))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(_ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(_ROOT),
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_mesh_entry_points_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: None resolves to it")
+    from sctools_tpu_torch.parallel import init_distributed, make_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed()
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+        make_mesh()
+    ds = sctt.data.synthetic.synthetic_counts(64, 16, seed=0)
+    src = sctt.data.stream.ShardSource.from_scipy(ds.X, shard_rows=64,
+                                                  device="cpu")
+    mesh = make_mesh(devices=["cpu"] * 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sctt.data.stream.stream_pipeline(src, mesh=mesh)
+    sharded = sctt.parallel.shard_celldata(ds, mesh)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sctt.Pipeline(["normalize.log1p"]).run(sharded)
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -69,6 +114,7 @@ def test_no_module_imports_jax_or_reference(path):
                                     "tsne_kernel_sweep.py",
                                     "stream_sweep.py",
                                     "refine_sweep.py",
+                                    "segment_sweep.py",
                                     "mesh_probe.py"])
 def test_card_scripts_import_no_jax_or_reference(script):
     for name in _imports(_ROOT / script):

@@ -146,3 +146,36 @@ def test_cells_from_numpy_rejects_bad_planes(pair):
     with pytest.raises(ValueError, match="capacity"):
         port_sparse.SparseCells.from_scipy_csr(
             sp.csr_matrix(np.ones((2, 200), np.float32)), capacity=128)
+
+
+@pytest.mark.parametrize("seg_rows", [None, 32, 8, 5])
+@pytest.mark.parametrize("block", [7, 64, 2048])
+def test_segment_reduce_is_fixed_order(pair, block, seg_rows, monkeypatch):
+    """The gene sums add in one order on every device (per gene within
+    blocks of ``seg_rows`` rows by a stable sort, then over the blocks;
+    no atomics; None: the CPU's one block a chunk, the card's 32 rows
+    forced here through ``_gene_segment_sum``): within float32
+    reordering of the float64 sums and of the reference's, the same
+    bits in a second call, and padding rows and sentinel slots add
+    nothing."""
+    ref, port = pair
+    fixed = port_sparse._gene_segment_sum
+    monkeypatch.setattr(port_sparse, "_gene_segment_sum",
+                        lambda ind, vals, n: fixed(ind, vals, n, seg_rows))
+
+    def sums(x):
+        return port_sparse.segment_reduce(
+            x, lambda ind, dat, r0: torch.stack([dat, dat * dat], dim=2), 2,
+            block=block)
+
+    got = sums(port)
+    ind = port.indices.numpy().reshape(-1)
+    dat = port.data.numpy().astype(np.float64).reshape(-1)
+    want = np.zeros((port.n_genes + 1, 2))
+    np.add.at(want, ind, np.stack([dat, dat * dat], axis=1))
+    np.testing.assert_allclose(got.numpy(), want[:-1], rtol=RTOL, atol=0)
+    np.testing.assert_allclose(got[:, 0].numpy(),
+                               np.asarray(ref_sparse.gene_stats(ref)[0]),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(sums(port), got)
+    assert torch.equal(sums(port.pad_rows_to(port.rows_padded + 40)), got)

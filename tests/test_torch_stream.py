@@ -152,13 +152,6 @@ def test_source_defaults_to_the_card(counts):
         DeviceSyntheticSource(64, 32, capacity=128, shard_rows=32)
 
 
-def test_mesh_raises_with_its_queue_item(src):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        src.with_mesh(object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        S.stream_pipeline(src, mesh=object(), device="cpu")
-
-
 def test_pipeline_device_must_be_the_sources(src):
     with pytest.raises(ValueError, match="lie on cpu"):
         S.stream_pipeline(src, device="meta")
