@@ -96,7 +96,25 @@ Phases, each printing one JSON line, each fatal on a failed check:
              first 16,384 cells, rebuilt on the card): labels equal or
              ARI ≥ 0.99 with |ΔQ| ≤ 1e-4 (flipped nodes printed);
              dendrogram and PAGA bit for bit;
-6c. layouts — ``embed.umap`` (200 epochs), ``embed.force_directed``
+6c. stats  — the analysis statistics at configs[1]'s width: phase
+             main's raw counts through library size and log1p on the
+             card (all 32,738 genes), grouped by the synthetic clusters,
+             on the main path's kNN graph with the port's
+             connectivities.  Each op twice at full width, bit for bit:
+             ``de.rank_genes_groups`` (t-test, t-test_overestim_var,
+             wilcoxon, logreg), ``de.filter_rank_genes_groups``,
+             ``score.genes`` and ``score.cell_cycle`` on marker sets,
+             ``metrics.morans_i`` and ``gearys_c`` with graph_matvec
+             launched twice a 256-gene block (256 a run); each run's wall
+             and peak memory.  Checks: finite; groups 1–9's top 20 t-test
+             genes up, logreg's top 30 overlapping the t-test's by more
+             than 0.2; marker sets score their group higher and are more
+             autocorrelated than the median gene.  The port on the CPU on
+             cuts: the tests and both metrics on the first 2,048 genes
+             (all cells), the filter on that block's wilcoxon ranking,
+             the control genes (equal) and scores on the first 8,192
+             cells (``STATS_TOL``);
+6d. layouts — ``embed.umap`` (200 epochs), ``embed.force_directed``
              (300) and ``embed.draw_graph`` on the graph phase's output
              (68,579 cells, k=15), each layout twice on the card: both
              runs bit for bit, draw_graph bit for bit force_directed,
@@ -105,7 +123,7 @@ Phases, each printing one JSON line, each fatal on a failed check:
              times a spectral start; each optimiser on the card against
              the CPU from one start and one draw of negatives after 1
              and 10 epochs (``LAYOUT_CPU_TOL``); walls, peak memory;
-6d. velocity — scVelo's workflow on a seeded stand-in
+6e. velocity — scVelo's workflow on a seeded stand-in
              (``velocity_standin``: 68,579 cells × 2,000 genes, a trunk
              splitting into two arms, splicing-ODE Poisson counts):
              library size → log1p → 30-PC PCA → kNN (k=30, knn_select
@@ -207,7 +225,8 @@ Phases, each printing one JSON line, each fatal on a failed check:
              card's bound (the published peaks and the bound rules are
              printed on a line of their own).  graph_matvec is timed at
              each path's width on that path's edges (MAGIC 2000,
-             SEACells 914, spectral 21, Palantir's fates), graph_rmatvec
+             SEACells 914, spectral 21, Palantir's fates, the metrics'
+             256-gene block on the main graph), graph_rmatvec
              at SEACells' 914 and Palantir's 1; each holds the column-
              slice identity there too.  graph_jaccard adds its
              torch.profiler device µs a recorded launch (taken in phase
@@ -1253,7 +1272,7 @@ def with_coarse_count(fn):
 
 def same_bits(a, b) -> bool:
     """Two results equal bit for bit: tensors, arrays, dicts, lists and
-    scalars."""
+    scalars (a NaN of an array equal to a NaN in the same place)."""
     import torch
 
     if isinstance(a, torch.Tensor):
@@ -1266,7 +1285,8 @@ def same_bits(a, b) -> bool:
         return (len(a) == len(b)
                 and all(same_bits(x, y) for x, y in zip(a, b)))
     a, b = np.asarray(a), np.asarray(b)
-    return a.dtype == b.dtype and np.array_equal(a, b)
+    return a.dtype == b.dtype and np.array_equal(
+        a, b, equal_nan=a.dtype.kind in "fc")
 
 
 def op_result(out, op: str, key: str | None) -> dict:
@@ -1485,7 +1505,279 @@ def cluster_phase(main: dict, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
-# 6c. layouts
+# 6c. stats
+# ----------------------------------------------------------------------
+
+STATS_METHODS = ("t-test", "t-test_overestim_var", "wilcoxon", "logreg")
+STATS_BLOCK = 2048  # genes of the card-against-CPU compares (one rank block)
+STATS_TOP = 20  # top t-test genes a group whose log fold change must be > 0
+LOGREG_TOP = 30  # top genes a group of the logreg against t-test overlap
+LOGREG_OVERLAP = 0.2  # tests/test_de_score.py's gate (random: 0.1)
+SCORE_CELLS = 8192  # cells of the score ops' card-against-CPU compare
+# card against CPU, (rtol, atol): the CPU tests' tolerances against the
+# float64 oracle (tests/test_torch_de.py, test_torch_score.py,
+# test_torch_metrics.py); p-values where p > STATS_P_FLOOR, below which
+# an ulp of t moves p by more than 1e-4 of itself
+STATS_TOL = {"scores": (1e-4, 1e-5), "pvals": (1e-4, 0.0),
+             "logfoldchanges": (1e-5, 1e-5), "score": (1e-6, 5e-7),
+             "metrics": (1e-4, 1e-5)}
+STATS_P_FLOOR = 1e-6
+RANK_KEYS = ("indices", "scores", "pvals", "pvals_adj", "logfoldchanges")
+
+
+def f64(v):
+    """A numpy array as a float64 tensor, for ``within``."""
+    import torch
+
+    return torch.from_numpy(np.asarray(v, np.float64))
+
+
+def by_gene(res: dict, key: str) -> np.ndarray:
+    """A ranking's ``key`` in gene-id order (every gene ranked)."""
+    inv = np.argsort(np.asarray(res["indices"]), axis=1)
+    return np.take_along_axis(np.asarray(res[key]), inv, axis=1)
+
+
+STATS_FILTER = dict(groupby="cluster_true", min_in_group_fraction=0.1,
+                    max_out_group_fraction=0.5, min_fold_change=1.5)
+
+
+def stats_cpu(blk) -> dict:
+    """The port on the CPU on the stats phase's 2,048-gene block with
+    all cells (a job of the worker process): the three tests, the
+    filter of wilcoxon's ranking and both metrics, each timed."""
+    import torch
+
+    from sctools_tpu_torch import apply
+    from sctools_tpu_torch.ops import metrics as M
+
+    cpu = torch.device("cpu")
+    out = {"rank": {}, "s": {}}
+    for method in STATS_METHODS[:3]:
+        t0 = time.perf_counter()
+        out["rank"][method] = apply(
+            "de.rank_genes_groups", blk, device=cpu, groupby="cluster_true",
+            method=method).uns["rank_genes_groups"]
+        out["s"][method] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["filter"] = apply(
+        "de.filter_rank_genes_groups", blk.with_uns(
+            rank_genes_groups=out["rank"]["wilcoxon"]), device=cpu,
+        **STATS_FILTER).uns["rank_genes_groups_filtered"]
+    out["s"]["filter"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["morans_i"], out["gearys_c"] = M._metrics(blk, "X", cpu)
+    out["s"]["metrics"] = time.perf_counter() - t0
+    return out
+
+
+def stats_phase(main: dict, card: str) -> dict:
+    """The analysis statistics at configs[1]'s width: the main phase's
+    raw counts (68,579 × 32,738) through library size and log1p on the
+    card, grouped by ``obs["cluster_true"]`` (10 groups), with the main
+    path's kNN graph and the port's connectivities.  Each op twice on
+    the card at full width, bit for bit: ``de.rank_genes_groups`` with
+    t-test, t-test_overestim_var, wilcoxon and logreg (300 Adam steps),
+    ``de.filter_rank_genes_groups`` on the wilcoxon ranking,
+    ``score.genes`` and ``score.cell_cycle`` on marker sets of the
+    t-test ranking, ``metrics.morans_i`` and ``gearys_c`` (graph_matvec
+    launched exactly twice a 256-gene block).  Checks: finite results;
+    in groups 1–9 (each boosts a gene program) the top 20 t-test genes
+    up in their group and the logreg's top 30 overlapping the t-test's
+    by more than 0.2; marker sets score their own group higher and are
+    more autocorrelated than the median gene.  Against the port on the
+    CPU: the three tests and both metrics on the first 2,048 genes with
+    all cells, the filter on that block's wilcoxon ranking
+    (``stats_cpu``, on the worker process while the card runs the
+    rest), the scores and control genes on the first 8,192 cells (in
+    this process, meanwhile)."""
+    import torch
+
+    from sctools_tpu_torch import Pipeline, apply
+    from sctools_tpu_torch.ops import graph_kernels as GK
+    from sctools_tpu_torch.ops import metrics as M
+    from sctools_tpu_torch.ops import score as S
+    from sctools_tpu_torch.ops.hvg import (_compact_capacity,
+                                           select_genes_device)
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    out = main["out"]
+    n = out.n_cells
+    data = Pipeline(MAIN_STEPS[1:3]).run(main["raw"], device=dev)
+    check(data.n_cells == n, f"{data.n_cells} cells against the kNN "
+                             f"graph's {n}")
+    graph = apply("graph.connectivities", out.replace(
+        obsp={k: out.obsp[k] for k in ("knn_indices", "knn_distances")}),
+        device=dev)
+    data = data.with_obsp(**graph.obsp)
+    genes = data.n_genes
+    runs = []
+
+    def twice(what: str, fn, result, launches=None):
+        """``fn()`` twice on the card, each run timed; the two
+        ``result(out)`` must be equal bit for bit."""
+        got = []
+        for rep in range(2):
+            GK.matvec.launches = 0
+            o, s, peak = timed_run(fn)
+            row = {"op": what, "rep": rep, "s": s, "peak_gb": peak}
+            if launches is not None:
+                row["graph_matvec_launches"] = GK.matvec.launches
+                check(GK.matvec.launches == launches,
+                      f"{what}: graph_matvec launched {GK.matvec.launches} "
+                      f"times, not {launches}")
+            runs.append(row)
+            got.append(result(o))
+        check(same_bits(got[0], got[1]), f"{what}: two card runs differ")
+        return got[0]
+
+    def rank_of(o, key="rank_genes_groups"):
+        res = o.uns[key]
+        return {k: np.asarray(res[k]) for k in res
+                if k not in ("method", "reference", "groups")}
+
+    def rank(method):
+        res = twice(f"de.rank_genes_groups {method}", lambda: apply(
+            "de.rank_genes_groups", data, device=dev, groupby="cluster_true",
+            method=method), rank_of)
+        check(res["scores"].shape == (KMEANS_K, genes),
+              f"{method}: scores {res['scores'].shape}")
+        for key in ("scores", "logfoldchanges") + (
+                ("pvals", "pvals_adj") if method != "logreg" else ()):
+            check(np.isfinite(res[key]).all(), f"{method}: {key} not finite")
+        return res
+
+    # the t-test first: its markers are the score phase's gene sets; then
+    # the CPU's cuts go to the worker while the card runs the rest
+    ranks = {"t-test": rank("t-test")}
+    tt = ranks["t-test"]
+    sets = {"genes": tt["indices"][1, :50], "s_genes": tt["indices"][2, :40],
+            "g2m_genes": tt["indices"][3, :40]}
+    blk = select_genes_device(data, np.arange(STATS_BLOCK))
+    blk = blk.with_X(_compact_capacity(blk.X,
+                                       int(blk.X.nnz_per_row().max())))
+    job = cpu_pool().submit(stats_cpu, blk.to_device("cpu"))
+    for method in STATS_METHODS[1:]:
+        ranks[method] = rank(method)
+    lr = ranks["logreg"]
+    overlap = []
+    for g in range(1, KMEANS_K):
+        check((tt["logfoldchanges"][g, :STATS_TOP] > 0).all(),
+              f"group {g}: a top-{STATS_TOP} t-test gene is not up")
+        overlap.append(len(set(tt["indices"][g, :LOGREG_TOP])
+                           & set(lr["indices"][g, :LOGREG_TOP]))
+                       / LOGREG_TOP)
+        check(overlap[-1] > LOGREG_OVERLAP,
+              f"group {g}: logreg top {LOGREG_TOP} overlaps the t-test's by "
+              f"{overlap[-1]}")
+    flt = twice("de.filter_rank_genes_groups", lambda: apply(
+        "de.filter_rank_genes_groups", data.with_uns(rank_genes_groups={
+            **ranks["wilcoxon"], "method": "wilcoxon", "reference": "rest",
+            "groups": [str(g) for g in range(KMEANS_K)]}), device=dev,
+        **STATS_FILTER), lambda o: rank_of(o, "rank_genes_groups_filtered"))
+
+    # scores on marker sets of the t-test ranking
+    sc = twice("score.genes", lambda: apply(
+        "score.genes", data, device=dev, genes=sets["genes"]),
+        lambda o: o.obs["score"][:n])
+    cc = twice("score.cell_cycle", lambda: apply(
+        "score.cell_cycle", data, device=dev, s_genes=sets["s_genes"],
+        g2m_genes=sets["g2m_genes"]),
+        lambda o: [o.obs["S_score"][:n], o.obs["G2M_score"][:n],
+                   o.obs["phase"][:n]])
+    truth = data.obs["cluster_true"][:n].cpu().numpy()
+    score = sc.cpu().numpy()
+    check(np.isfinite(score).all() and all(
+        bool(torch.isfinite(v).all()) for v in cc[:2]), "scores not finite")
+    check(score[truth == 1].mean() > score[truth != 1].mean(),
+          "group 1's markers do not score group 1 higher")
+    check(set(np.unique(cc[2])) <= {"G1", "S", "G2M"}, "unknown phases")
+
+    # metrics at full width: two products a 256-gene block
+    blocks = -(-genes // M._GCHUNK)
+    met = {}
+    for op, key in (("metrics.morans_i", "morans_i"),
+                    ("metrics.gearys_c", "gearys_c")):
+        met[key] = twice(op, lambda: apply(op, data, device=dev),
+                         lambda o: np.asarray(o.var[key]),
+                         launches=2 * blocks)
+        check(met[key].shape == (genes,) and np.isfinite(met[key]).all(),
+              f"{op}: not finite")
+    marks = tt["indices"][1:, :STATS_TOP].ravel()
+    check(np.median(met["morans_i"][marks]) > np.median(met["morans_i"])
+          and np.median(met["gearys_c"][marks])
+          < np.median(met["gearys_c"]),
+          "marker genes are not more autocorrelated than the median gene")
+
+    # the scores on their cut, card against CPU in this process, while
+    # the worker runs the block's
+    t0 = time.perf_counter()
+    sub = data[np.arange(SCORE_CELLS)]
+    cut = {}
+    for d in (sub, sub.to_device("cpu")):
+        ctrl = S._control_indices(S._gene_means_host(d.X), sets["genes"],
+                                  50, 25, 0)
+        r = apply("score.cell_cycle", apply(
+            "score.genes", d, device=d.X.device, genes=sets["genes"]),
+            device=d.X.device, s_genes=sets["s_genes"],
+            g2m_genes=sets["g2m_genes"])
+        cut[d.X.device.type] = (ctrl, {
+            k: np.asarray(r.obs[k].cpu() if k != "phase" else r.obs[k])
+            [:SCORE_CELLS] for k in ("score", "S_score", "G2M_score",
+                                     "phase")})
+    (ctrl_card, a), (ctrl_cpu, b) = cut[dev.type], cut["cpu"]
+    check(np.array_equal(ctrl_card, ctrl_cpu),
+          "score.genes: card and CPU draw other control genes")
+    cmp = {"control_genes": int(len(ctrl_cpu))}
+    for key in ("score", "S_score", "G2M_score"):
+        cmp[key] = within(f64(a[key]), f64(b[key]), *STATS_TOL["score"])
+    eps = STATS_TOL["score"][1]
+    s, g = b["S_score"], b["G2M_score"]
+    clear = (np.abs(s) > eps) & (np.abs(g) > eps) & (np.abs(s - g) > eps)
+    check(np.array_equal(a["phase"][clear], b["phase"][clear]),
+          "score.cell_cycle: card and CPU call other phases")
+    cmp["score_s"] = time.perf_counter() - t0
+
+    # the block, card against the worker's CPU runs
+    t0 = time.perf_counter()
+    host = job.result()
+    cmp.update(cpu_s=host["s"], wait_s=time.perf_counter() - t0)
+    for method in STATS_METHODS[:3]:
+        row = {}
+        for key in ("scores", "pvals", "logfoldchanges"):
+            a = by_gene(ranks[method], key)[:, :STATS_BLOCK]
+            b = by_gene(host["rank"][method], key)
+            keep = b > STATS_P_FLOOR if key == "pvals" else slice(None)
+            row[key] = within(f64(a[keep]), f64(b[keep]), *STATS_TOL[key])
+        cmp[method] = row
+    fc = apply("de.filter_rank_genes_groups", blk.with_uns(
+        rank_genes_groups=host["rank"]["wilcoxon"]), device=dev,
+        **STATS_FILTER).uns["rank_genes_groups_filtered"]
+    fh = host["filter"]
+    check(same_bits({k: np.asarray(fc[k]) for k in fh},
+                    {k: np.asarray(fh[k]) for k in fh}),
+          "filter_rank_genes_groups: card and CPU differ")
+    cmp["filter_kept"] = int(np.asarray(fh["kept"]).sum())
+    for key in ("morans_i", "gearys_c"):
+        cmp[key] = within(f64(met[key][:STATS_BLOCK]), f64(host[key]),
+                          *STATS_TOL["metrics"])
+
+    # graph_matvec's input on this path: the first block's centred values
+    idx, w = M._edge_arrays(data)
+    x = M._values_chunk(M._resolve_values(data, "X"), n, 0, M._GCHUNK)
+    emit({"phase": "stats", "card": card, "cells": n, "genes": genes,
+          "groups": KMEANS_K, "runs": runs, "logreg_overlap": overlap,
+          "filter_kept": int(np.asarray(flt["kept"]).sum()),
+          "cpu_compare": cmp, "phase_s": time.perf_counter() - t_phase})
+    return {"idx": torch.from_numpy(idx).to(dev),
+            "w": torch.from_numpy(w.astype(np.float32)).to(dev),
+            "x": x - x.mean(dim=0, keepdim=True),
+            "launches": 2 * blocks}
+
+
+# ----------------------------------------------------------------------
+# 6d. layouts
 # ----------------------------------------------------------------------
 
 # (op, obsm key, epochs, scale of its spectral start)
@@ -1611,7 +1903,7 @@ def layouts_phase(graph: dict, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
-# 6d. velocity
+# 6e. velocity
 # ----------------------------------------------------------------------
 
 VEL_GENES = 2000  # scVelo's filter_and_normalize(n_top_genes=2000)
@@ -3889,6 +4181,7 @@ def run() -> int:
     pal = palantir_phase(main_out, card)
     neighbors_phase(main_out, card)
     cluster = cluster_phase(main_out, card)
+    stats = stats_phase(main_out, card)
     lay = layouts_phase(graph, card)
     vel = velocity_phase(card)
     recipes_finish()  # the recipes' CPU runs, on the worker meanwhile
@@ -3906,6 +4199,10 @@ def run() -> int:
     kernels += stream_mesh_kernel_row(smesh, card, peaks)
     kernels += graph_kernels_phase(graph, cluster, card, peaks)
     kernels += path_matvec_rows(meta, pal, card, peaks)
+    kernels.append(matvec_row(stats["idx"], stats["w"], stats["x"],
+                              stats["launches"],
+                              "metrics.morans_i, 256-gene block", card,
+                              peaks))
     kernels += diffuse_matvec_rows(mesh, card, peaks)
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)
     kernels += velocity_kernel_rows(lay, vel, card, peaks)

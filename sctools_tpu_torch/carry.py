@@ -14,7 +14,10 @@ over the reference's arrays through numpy:
   packages run the graph tail on the same edges;
 * ``spectral_v0_from_numpy`` turns the reference's start block of the
   diffusion-map subspace iteration (``jax.random`` again) into the
-  ``v0=`` of ``embed.spectral``.
+  ``v0=`` of ``embed.spectral``;
+* ``logreg_w0_from_numpy`` turns the reference's start of the
+  ``de.rank_genes_groups(method="logreg")`` coefficients (``jax.random``
+  again) into what ``ops.de.logreg_w0`` returns.
 """
 
 from __future__ import annotations
@@ -75,6 +78,17 @@ def spectral_v0_from_numpy(v0) -> torch.Tensor:
     if v0.ndim != 2:
         raise ValueError(f"v0 must be (n, width), got {v0.shape}")
     return torch.from_numpy(v0)
+
+
+def logreg_w0_from_numpy(w0) -> torch.Tensor:
+    """The reference's (n_genes, n_groups) logreg start, ``1e-3 ·
+    jax.random.normal``, as the float32 tensor that
+    ``ops.de.logreg_w0`` returns (a caller patches that function with
+    it, or passes it to ``ops.de._logreg_scores(w0=)``)."""
+    w0 = np.array(w0, dtype=np.float32)
+    if w0.ndim != 2:
+        raise ValueError(f"w0 must be (n_genes, n_groups), got {w0.shape}")
+    return torch.from_numpy(w0)
 
 
 def graph_from_numpy(data: CellData, knn_indices, knn_distances,

@@ -402,3 +402,84 @@ def gene_centred_sq(x: SparseCells, mu: torch.Tensor) -> torch.Tensor:
         return (dev * dev)[:, :, None]
 
     return segment_reduce(x, slot_sq, 1)[:, 0]
+
+
+# ----------------------------------------------------------------------
+# Gene-major views of the stored slots.
+# ----------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneSlots:
+    """The stored slots of a padded-ELL matrix (valid rows, gene id
+    below the sentinel) in the order :func:`segment_reduce` adds them:
+    per row chunk, sorted by first-level block and gene id, row order
+    within.  Built once by :func:`gene_slots`, so a caller that sums
+    over the same matrix many times (the logistic regression's 300
+    gradients) sorts once.  Per chunk: ``rows`` (m,) int64 absolute row
+    ids, ``data`` (m,) the values, ``lengths`` (n_blk · n_genes,) int64
+    the sizes of the (block, gene) segments, and ``n_blk``."""
+
+    chunks: tuple
+    n_genes: int
+
+
+def gene_slots(x: SparseCells, block: int = _ROW_CHUNK,
+               seg_rows: int | None = None) -> GeneSlots:
+    """:class:`GeneSlots` of ``x``: the sort of :func:`_gene_segment_sum`
+    for each chunk of ``block`` rows, with the empty slots (and padding
+    rows) left out.  ``seg_rows`` as there.  One host sync a chunk (its
+    count of stored slots)."""
+    chunks = []
+    for r0, ind, dat in _row_chunks(x, block):
+        rows, cap = ind.shape
+        sr = seg_rows or (_SEG_ROWS if ind.is_cuda else rows)
+        n_blk = -(-rows // sr)
+        n_seg = n_blk * x.n_genes
+        slot = torch.arange(rows * cap, device=ind.device,
+                            dtype=torch.int64).view(rows, cap)
+        valid = _valid_of(x, ind, r0)
+        key = torch.where(valid, slot // (cap * sr) * x.n_genes + ind,
+                          n_seg).reshape(-1)
+        key, order = torch.sort(key, stable=True)
+        ends = torch.searchsorted(key, torch.arange(
+            1, n_seg + 1, device=key.device, dtype=key.dtype))
+        lengths = torch.diff(ends, prepend=ends.new_zeros(1))
+        m = int(ends[-1]) if n_seg else 0
+        order = order[:m]
+        chunks.append((r0 + order // cap, dat.reshape(-1)[order], lengths,
+                       n_blk))
+    return GeneSlots(tuple(chunks), x.n_genes)
+
+
+def gene_slots_sum(slots: GeneSlots, values_fn, d: int) -> torch.Tensor:
+    """Per-gene sums of ``values_fn(rows, data) -> (m, d)`` over the
+    stored slots, (n_genes, d): the bits :func:`segment_reduce` gives
+    for the same slot values (empty slots adding nothing)."""
+    acc = None
+    for rows, dat, lengths, n_blk in slots.chunks:
+        vals = values_fn(rows, dat)
+        if acc is None:
+            acc = torch.zeros((slots.n_genes, d), dtype=vals.dtype,
+                              device=vals.device)
+        if rows.numel() == 0:
+            continue
+        seg = torch.segment_reduce(vals, "sum", lengths=lengths, axis=0,
+                                   unsafe=True)
+        acc = acc + seg.view(n_blk, slots.n_genes, d).sum(dim=0)
+    return acc
+
+
+def dense_gene_block(x: SparseCells, lo: int, width: int) -> torch.Tensor:
+    """Gene columns ``[lo, lo + width)`` of ``x`` densified, (n_cells,
+    width), without the full matrix: the stored slots in range are
+    found and written to their cells (each (cell, gene) once, so the
+    result does not depend on the order of the writes)."""
+    n = x.n_cells
+    shifted = x.indices[:n] - lo
+    r, s = ((shifted >= 0) & (shifted < width)
+            & (x.indices[:n] != x.sentinel)).nonzero(as_tuple=True)
+    out = torch.zeros((n, width), dtype=x.data.dtype, device=x.device)
+    out.index_put_((r, shifted[r, s].long()), x.data[r, s],
+                   accumulate=True)
+    return out

@@ -1,9 +1,9 @@
 """The port's ops; importing this package registers them."""
 
-from . import (cluster, distance, graph, graph_kernels, hvg, knn,
-               knn_kernel, metacells, normalize, palantir, pca, qc, tsne,
-               umap, velocity)
+from . import (cluster, de, distance, graph, graph_kernels, hvg, knn,
+               knn_kernel, metacells, metrics, normalize, palantir, pca, qc,
+               score, tsne, umap, velocity)
 
-__all__ = ["cluster", "distance", "graph", "graph_kernels", "hvg", "knn",
-           "knn_kernel", "metacells", "normalize", "palantir", "pca", "qc",
-           "tsne", "umap", "velocity"]
+__all__ = ["cluster", "de", "distance", "graph", "graph_kernels", "hvg",
+           "knn", "knn_kernel", "metacells", "metrics", "normalize",
+           "palantir", "pca", "qc", "score", "tsne", "umap", "velocity"]

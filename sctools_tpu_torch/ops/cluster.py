@@ -57,8 +57,9 @@ INT_MAX = torch.iinfo(torch.int32).max
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of each row of ``x`` (n, c), left to right."""
-    acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    """Sum of each row of ``x`` (n, c) or (n, c, d) over its c axis,
+    left to right."""
+    acc = torch.zeros_like(x[:, 0])
     for j in range(x.shape[1]):
         acc = acc + x[:, j]
     return acc

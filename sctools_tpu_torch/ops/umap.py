@@ -35,7 +35,7 @@ import torch
 from ..config import resolve_device
 from ..data.dataset import CellData
 from ..registry import register
-from .cluster import _segment_sum, segment_order
+from .cluster import _row_sum, _segment_sum, segment_order
 from .graph import (_require_knn, _symmetrized_weights, connectivities,
                     spectral)
 from .graph_kernels import gather_rows
@@ -92,9 +92,10 @@ class _Edges:
 
 def _alphas(lr: float, n_epochs: int, device) -> torch.Tensor:
     """``lr·(1 − step/n_epochs)`` for every epoch, in float32 as the
-    reference's scan computes it."""
-    steps = torch.arange(n_epochs, dtype=torch.float32, device=device)
-    return lr * (1.0 - steps / n_epochs)
+    reference's scan computes it, on the CPU and then moved: the card
+    divides by a scalar through its reciprocal, an ulp off."""
+    steps = torch.arange(n_epochs, dtype=torch.float32)
+    return (lr * (1.0 - steps / n_epochs)).to(device)
 
 
 def _draws(seed, n_epochs, n, n_neg, device):
@@ -147,25 +148,28 @@ def fa2_layout_arrays(knn_idx: torch.Tensor, weights: torch.Tensor,
     attraction ``-w·diff`` along the edges, repulsion
     ``(deg_i+1)(deg_j+1)/d²`` averaged over ``n_neg`` negative samples
     and scaled by ``repulsion``, gravity toward the origin, the step
-    clipped to ±10."""
+    clipped to ±10.  The card repeats the CPU's bits: the sums over
+    the k and ``n_neg`` axes add left to right (``cluster._row_sum``),
+    and the norm's root is taken in float64, which rounds to the
+    correctly rounded float32 root on every device."""
     dev = knn_idx.device
     e = _Edges(knn_idx, weights)
     w = e.w[:, :, None]
-    deg = e.w.sum(dim=1) + 1.0
+    deg = _row_sum(e.w) + 1.0
     y = init.to(device=dev, dtype=torch.float32)
     rep_scale = repulsion / max(n_neg, 1)
     alphas = _alphas(lr, n_epochs, dev)
     for step, negs in enumerate(_draws(seed, n_epochs, e.n, n_neg, dev)):
         diff = y[:, None, :] - gather_rows(y, e.safe)
         att = -(w * diff)
-        g = att.sum(dim=1) + e.reaction(att)
+        g = _row_sum(att) + e.reaction(att)
         diff_n = y[:, None, :] - gather_rows(y, negs)
         d2n = (diff_n * diff_n).sum(dim=2)
         coef_n = (deg[:, None] * deg[negs]) / (_EPS + d2n)
         rep = torch.clamp(coef_n[:, :, None] * diff_n, -10.0, 10.0)
-        g = g + rep_scale * rep.sum(dim=1)
+        g = g + rep_scale * _row_sum(rep)
         # ‖y_i‖ as jnp.linalg.norm computes it: the root of Σ y²
-        norm = torch.sqrt((y * y).sum(dim=1, keepdim=True))
+        norm = torch.sqrt((y * y).sum(dim=1, keepdim=True).double()).float()
         g = g - gravity * deg[:, None] * y / torch.clamp(norm, min=_EPS)
         y = y + alphas[step] * torch.clamp(g, -10.0, 10.0)
     return y

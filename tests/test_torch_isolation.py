@@ -199,7 +199,9 @@ def test_graph_kernel_wrapper_has_no_exception_handler(name):
     "velocity.estimate", "velocity.graph", "velocity.embedding",
     "velocity.terminal_states", "velocity.fate_probabilities",
     "velocity.lineage_drivers", "velocity.recover_dynamics",
-    "velocity.latent_time"])
+    "velocity.latent_time", "de.rank_genes_groups",
+    "de.filter_rank_genes_groups", "score.genes", "score.cell_cycle",
+    "metrics.morans_i", "metrics.gearys_c"])
 def test_graph_ops_default_to_the_card_and_raise_without_one(op):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None resolves to it")
@@ -240,13 +242,15 @@ def test_registry_is_separate_from_the_reference():
     assert sctt.names() == [
         "cluster.dendrogram", "cluster.kmeans", "cluster.leiden",
         "cluster.leiden_like", "cluster.louvain", "cluster.phenograph",
+        "de.filter_rank_genes_groups", "de.rank_genes_groups",
         "distance.pairwise", "dpt.pseudotime", "embed.diffmap",
         "embed.draw_graph", "embed.force_directed", "embed.spectral",
         "embed.tsne", "embed.umap", "graph.connectivities",
         "graph.diffusion_operator", "graph.jaccard", "graph.paga",
         "graph.reorder", "graph.restore_order", "hvg.select",
         "impute.magic",
-        "metacells.aggregate", "metacells.seacells", "neighbors.bbknn",
+        "metacells.aggregate", "metacells.seacells", "metrics.gearys_c",
+        "metrics.morans_i", "neighbors.bbknn",
         "neighbors.knn", "neighbors.knn_multichip", "normalize.clr",
         "normalize.downsample_counts", "normalize.library_size",
         "normalize.log1p", "normalize.pearson_residuals",
@@ -254,13 +258,14 @@ def test_registry_is_separate_from_the_reference():
         "pca.exact", "pca.randomized", "qc.filter_cells",
         "qc.filter_genes", "qc.per_cell_metrics", "qc.per_gene_metrics",
         "qc.subsample", "recipe.pearson_residuals", "recipe.seurat",
-        "recipe.weinreb17", "recipe.zheng17", "util.snapshot_layer",
+        "recipe.weinreb17", "recipe.zheng17", "score.cell_cycle",
+        "score.genes", "util.snapshot_layer",
         "velocity.embedding", "velocity.estimate",
         "velocity.fate_probabilities", "velocity.graph",
         "velocity.latent_time", "velocity.lineage_drivers",
         "velocity.moments", "velocity.recover_dynamics",
         "velocity.terminal_states"]
-    assert len(sctt.names()) == 56  # of the reference's 79
+    assert len(sctt.names()) == 62  # of the reference's 79
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     meta = sctt.registry.metadata("neighbors.knn_multichip")
     assert meta["sharding"] == "cells" and meta["collective"] is True
