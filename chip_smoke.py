@@ -114,6 +114,26 @@ Phases, each printing one JSON line, each fatal on a failed check:
              (all cells), the filter on that block's wilcoxon ranking,
              the control genes (equal) and scores on the first 8,192
              cells (``STATS_TOL``);
+6c'. integrate — multi-sample batch integration at configs[1]'s
+             width: phase main's raw counts cut into four contiguous
+             batches b0–b3 (17,145 / 17,145 / 17,145 / 17,144 cells),
+             each batch's counts times its own per-gene factor
+             exp(σ·N(0, 1)) (``integrate_batches``, σ =
+             INTEGRATE_SIGMA, seed 19), merged by ``concat(label=
+             "batch")``, through the main path to 2,000 HVGs and 50
+             PCs; then ``integrate.combat`` (and a PCA of its X),
+             ``integrate.harmony`` and ``integrate.mnn`` on the PCA,
+             ``neighbors.bbknn`` on X_harmony, and ``integrate.ingest``
+             of b3 (to log1p, b0–b2's HVG genes) onto b0–b2 (their own
+             path and PCA), transferring the synthetic clusters.  Each
+             op twice, bit for bit, knn_select launches counted (combat
+             and harmony 0, mnn 9, bbknn 4, ingest 1); gates: the
+             20-NN batch mixing up by 0.1 after harmony, mnn and
+             combat's PCA, purity ≥ 0.9 × the uncorrected, ingest's
+             vote right for ≥ 0.9 × the share the same vote gets inside
+             b0–b2.  The card against the CPU (the worker) on the first
+             2,048 cells of each batch (``INTEGRATE_TOL``; MNN's and
+             ingest's neighbour lists equal or near-ties only);
 6d. layouts — ``embed.umap`` (200 epochs), ``embed.force_directed``
              (300) and ``embed.draw_graph`` on the graph phase's output
              (68,579 cells, k=15), each layout twice on the card: both
@@ -245,9 +265,17 @@ Phases, each printing one JSON line, each fatal on a failed check:
              layouts' spectral start (d = 8) and at the velocity
              moments (d = 2000, and ``moments(mesh=)``'s ring step and
              all_gather product at d = 8000); knn_select also at the
-             velocity stand-in's 68,579² × 30, k=30, and at
+             velocity stand-in's 68,579² × 30, k=30, at
              stream_mesh's ring step (325,632² × 50 of its own
-             embedding).
+             embedding), and at phase integrate's searches: MNN's last
+             merge (17,144 × 51,435 × 50, euclidean, K = 32, and the
+             smoothing's k = 50 against b3's anchors; yardstick
+             ``torch.cdist`` + ``torch.topk``) and ingest's (17,144 ×
+             51,435 × 50, cosine, k = 64).
+
+The float64 kNN oracles of phases stream and mesh run on the worker
+process while the card goes on; their recalls are checked at the end of
+their phase.
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -1777,6 +1805,502 @@ def stats_phase(main: dict, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# 6c'. integrate
+# ----------------------------------------------------------------------
+
+INTEGRATE_KEYS = ("b0", "b1", "b2", "b3")  # the batches, in row order
+INTEGRATE_SEED = 19  # numpy default_rng seed of the per-gene batch factors
+INTEGRATE_SIGMA = 1.0  # a batch's factor on gene g: exp(σ·N(0, 1))
+INTEGRATE_CUT = 2048  # first cells of each batch in the card-against-CPU cut
+MIX_K = 20  # tests/test_integrate.py:_local_batch_mix's k
+# quality gates at full width (PERF.md §6): local batch mixing
+# must rise by MIX_RISE, kNN purity against the synthetic clusters keep
+# PURITY_KEEP of the uncorrected embedding's, and ingest's vote on the
+# query b3 be right for INGEST_KEEP of the share that the same vote
+# gets inside the reference
+MIX_RISE = 0.1
+PURITY_KEEP = 0.9
+INGEST_KEEP = 0.9  # of the same vote's accuracy inside the reference
+# card against CPU on the cut: the CPU tests' tolerances
+# (tests/test_torch_integrate.py, test_torch_mnn.py, test_torch_ingest.py),
+# but for ingest's confidences: the test's 1e-6 holds sums in one order
+# on the CPU; on the card the refine's 64 distances come from sums in
+# another order (a few ulps each), and a confidence, a sum of
+# normalised 1/d, moves by up to ~20 ulps of 1
+INTEGRATE_TOL = {"combat": 1e-5, "harmony": 1e-4, "mnn": 1e-5,
+                 "ingest_pca": (1e-5, 1.5e-6), "confidence": 1e-5,
+                 "near_tie": 1e-5}
+MNN_MOVED = 0.1  # the cut's share of cells a near-tie flip may move
+
+
+def integrate_batches(raw, sigma: float = INTEGRATE_SIGMA):
+    """The main phase's raw counts cut into len(INTEGRATE_KEYS)
+    contiguous batches (sizes differing by at most one), each batch's
+    stored counts multiplied by its own per-gene factor exp(σ·N(0, 1))
+    (one draw a batch from ``default_rng(INTEGRATE_SEED)``): a batch
+    effect in log space.  obs ``cluster_true`` and, as a category for
+    ``integrate.ingest``'s vote, ``cluster``.  Returns (host CellData
+    parts, row bounds)."""
+    from sctools_tpu_torch import CellData
+
+    X = raw.X.tocsr()
+    n, g = X.shape
+    b = len(INTEGRATE_KEYS)
+    bounds = np.concatenate([[0], np.cumsum(
+        [n // b + (i < n % b) for i in range(b)])])
+    rng = np.random.default_rng(INTEGRATE_SEED)
+    truth = np.asarray(raw.obs["cluster_true"])
+    parts = []
+    for i in range(b):
+        rows = slice(bounds[i], bounds[i + 1])
+        Xb = X[rows].astype(np.float32)  # a copy
+        f = np.exp(sigma * rng.standard_normal(g)).astype(np.float32)
+        Xb.data *= f[Xb.indices]
+        parts.append(CellData(Xb, obs={"cluster_true": truth[rows],
+                                       "cluster": truth[rows].astype(str)},
+                              var=dict(raw.var)))
+    return parts, bounds
+
+
+def mix_purity(emb, batch, truth) -> dict:
+    """``tests/test_integrate.py:_local_batch_mix`` (the share of each
+    cell's MIX_K nearest neighbours, euclidean, self excluded, from
+    other batches) and the share from its own synthetic cluster, with
+    the port's exact kNN on the embedding's device."""
+    import torch
+
+    from sctools_tpu_torch.ops.knn import knn_arrays
+
+    n = len(batch)
+    x = emb[:n].float().contiguous()
+    idx, _ = knn_arrays(x, x, k=MIX_K + 1, metric="euclidean",
+                        exclude_self=True)
+    idx = idx[:n, :MIX_K].long()
+    b = torch.as_tensor(batch, device=x.device)
+    t = torch.as_tensor(truth, device=x.device)
+    return {"mixing": float((b[idx] != b[:, None]).float().mean()),
+            "purity": float((t[idx] == t[:, None]).float().mean())}
+
+
+def recording_search(dev, calls: list):
+    """``ops.mnn.search_on(dev)`` that keeps each search's ids of the
+    valid rows in ``calls``, with their float64 distances (the
+    smoothing's, which the op takes; a self-distance is 0)."""
+    from sctools_tpu_torch.ops import mnn as M
+
+    knn = M.search_on(dev)
+
+    def search(q, c, k):
+        idx, d = knn(q, c, k)
+        ids = idx[: len(q)]
+        calls.append((ids, M._distances(q, c, ids)))
+        return idx, d
+
+    return search
+
+
+def integrate_cut(inp: dict, device) -> dict:
+    """The five ops on the cut's inputs on ``device`` (the card here,
+    the CPU in the worker), each where its inputs are in ``inp``:
+    ComBat, Harmony and MNN (its searches recorded) on ``pre`` (the HVG
+    matrix and PCA), bbknn on ``bb``'s X_harmony, ingest of ``query``
+    onto ``ref`` with its search's lists; each op's seconds."""
+    import torch
+
+    from sctools_tpu_torch import apply
+    from sctools_tpu_torch.ops.knn import knn_arrays
+
+    dev = torch.device(device)
+    secs = {}
+    out = {"s": secs}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    if "pre" in inp:
+        out.update(_integrate_cut_pre(inp["pre"].to_device(dev), dev, timed))
+    if "bb" in inp:
+        bb = timed("bbknn", lambda: apply(
+            "neighbors.bbknn", inp["bb"].to_device(dev), device=dev,
+            use_rep="X_harmony"))
+        n = bb.n_cells
+        out["bbknn"] = (bb.obsp["knn_indices"][:n].cpu().numpy(),
+                        bb.obsp["knn_distances"][:n].cpu().numpy())
+    if "query" in inp:
+        ref = inp["ref"].to_device(dev)
+        ing = timed("ingest", lambda: apply(
+            "integrate.ingest", inp["query"], device=dev, ref=ref,
+            obs=("cluster",), embeddings=()))
+        nq = ing.n_cells
+        idx, d = knn_arrays(ing.obsm["X_pca"], ref.obsm["X_pca"], k=15,
+                            metric="cosine", n_query=nq, n_cand=ref.n_cells,
+                            refine=64)
+        out["ingest"] = {
+            "X_pca": ing.obsm["X_pca"].cpu().numpy(),
+            "cluster": np.asarray(ing.obs["cluster"]),
+            "confidence": np.asarray(ing.obs["cluster_confidence"]),
+            "lists": (idx[:nq].cpu().numpy(), d[:nq].cpu().numpy())}
+    return out
+
+
+def _integrate_cut_pre(pre, dev, timed) -> dict:
+    from sctools_tpu_torch import apply
+    from sctools_tpu_torch.ops import mnn as M
+
+    out = {}
+    out["combat"] = timed("combat", lambda: apply(
+        "integrate.combat", pre, device=dev).X.cpu().numpy())
+    out["harmony"] = timed("harmony", lambda: apply(
+        "integrate.harmony", pre, device=dev).obsm["X_harmony"].cpu().numpy())
+    calls = []
+    out["mnn"], out["mnn_order"] = timed("mnn", lambda: M._mnn(
+        pre, "batch", "X_pca", 20, 1.0, recording_search(dev, calls)))
+    out["mnn_calls"] = calls
+    return out
+
+
+def near_tie_rows(a_idx, a_d, b_idx, b_d, what: str) -> np.ndarray:
+    """Rows whose neighbour sets differ, each checked to be a near-tie:
+    the ids only one list holds pair up, by sorted distance, with ids
+    only the other holds at distances within INTEGRATE_TOL["near_tie"]
+    (relative); the shared ids' distances agree within it too.  Returns
+    the rows that differ."""
+    tie = INTEGRATE_TOL["near_tie"]
+    check(a_idx.shape == b_idx.shape, f"{what}: list shapes differ")
+    diff = np.nonzero((np.sort(a_idx, axis=1)
+                       != np.sort(b_idx, axis=1)).any(axis=1))[0]
+    for i in diff:
+        da = np.sort(a_d[i][~np.isin(a_idx[i], b_idx[i])])
+        db = np.sort(b_d[i][~np.isin(b_idx[i], a_idx[i])])
+        check(len(da) == len(db) and np.all(
+            np.abs(da - db) <= tie * np.maximum(np.abs(db), 1.0)),
+            f"{what}: row {i} differs beyond a near-tie ({da} vs {db})")
+    same = np.setdiff1d(np.arange(len(a_idx)), diff)
+    a_s = np.sort(a_d[same], axis=1)
+    b_s = np.sort(b_d[same], axis=1)
+    fin = np.isfinite(b_s)
+    check(np.array_equal(np.isfinite(a_s), fin) and np.all(
+        np.abs(a_s[fin] - b_s[fin]) <= tie * np.maximum(np.abs(b_s[fin]),
+                                                        1.0)),
+          f"{what}: distances of the same neighbours differ beyond {tie}")
+    return diff
+
+
+def integrate_compare(card: dict, cpu: dict) -> dict:
+    """The cut's card results against the CPU's, at INTEGRATE_TOL."""
+    tol = INTEGRATE_TOL
+    cmp = {}
+    a, b = card["combat"], cpu["combat"]
+    cmp["combat"] = within(f64(a), f64(b), tol["combat"],
+                           tol["combat"] * float(np.abs(b).max()))
+    a, b = card["harmony"], cpu["harmony"]
+    err = float(np.abs(a.astype(np.float64) - b).max())
+    check(err <= tol["harmony"] * float(np.abs(b).max()),
+          f"integrate.harmony: card and CPU {err} apart, beyond "
+          f"{tol['harmony']} of the scale")
+    cmp["harmony"] = err
+    cmp["harmony_scale"] = float(np.abs(b).max())
+    check(card["mnn_order"] == cpu["mnn_order"],
+          "integrate.mnn: card and CPU merge in another order")
+    flips = [len(near_tie_rows(x[0], x[1], y[0], y[1],
+                               f"integrate.mnn search {i}"))
+             for i, (x, y) in enumerate(zip(card["mnn_calls"],
+                                            cpu["mnn_calls"]))]
+    cmp["mnn_searches"] = len(flips)
+    cmp["mnn_near_tie_rows"] = flips
+    # a near-tie flip changes a pair, and the anchors' smoothing then
+    # moves the cells around them: where a list differs, X_mnn is held
+    # on all but MNN_MOVED of the cells
+    a, b = card["mnn"].astype(np.float64), cpu["mnn"].astype(np.float64)
+    ok = (np.abs(a - b) <= tol["mnn"] * (1.0 + np.abs(b))).all(axis=1)
+    cmp["mnn_rows_moved"] = int((~ok).sum())
+    cmp["mnn_max_abs_diff"] = float(np.abs(a - b).max())
+    check(ok.all() if not any(flips) else ok.mean() >= 1.0 - MNN_MOVED,
+          f"integrate.mnn: {int((~ok).sum())} of {len(ok)} cells beyond "
+          f"rtol/atol {tol['mnn']} (near-tie rows {flips})")
+    cmp["bbknn_near_tie_rows"] = len(near_tie_rows(
+        *card["bbknn"], *cpu["bbknn"], "neighbors.bbknn"))
+    ci, pi = card["ingest"], cpu["ingest"]
+    rtol, atol = tol["ingest_pca"]
+    cmp["ingest_X_pca"] = within(f64(ci["X_pca"]), f64(pi["X_pca"]), rtol,
+                                 atol * float(np.abs(pi["X_pca"]).max()))
+    rows = near_tie_rows(*ci["lists"], *pi["lists"], "integrate.ingest")
+    keep = np.setdiff1d(np.arange(len(pi["cluster"])), rows)
+    check(np.array_equal(ci["cluster"][keep], pi["cluster"][keep]),
+          "integrate.ingest: card and CPU vote other labels")
+    cmp["ingest_confidence"] = within(
+        f64(ci["confidence"][keep]), f64(pi["confidence"][keep]),
+        tol["confidence"], tol["confidence"])
+    cmp["ingest_near_tie_rows"] = len(rows)
+    return cmp
+
+
+def integrate_phase(main: dict, card: str, sigma: float = INTEGRATE_SIGMA
+                    ) -> dict:
+    """Multi-sample batch integration at configs[1]'s width: the main
+    phase's raw counts (68,579 × 32,738) cut into four batches with a
+    per-gene batch factor each (``integrate_batches``), merged by
+    ``concat(label="batch")`` and taken through the main path to 2,000
+    HVGs and 50 PCs on the card; then ``integrate.combat`` (and a PCA
+    of its output), ``integrate.harmony`` and ``integrate.mnn`` on the
+    PCA, ``neighbors.bbknn`` on X_harmony, and ``integrate.ingest`` of
+    batch b3 (the same steps, the reference's HVG genes) onto b0–b2
+    (their own path and PCA), transferring the synthetic clusters.
+    Each op twice on the card, bit for bit, with its knn_select
+    launches counted around each run (combat and harmony 0, mnn three
+    a merge, bbknn one a batch, ingest 1).  Gates: mixing, purity and
+    the transfer (MIX_RISE, PURITY_KEEP; ingest's transfer
+    ≥ INGEST_KEEP × the same vote inside the reference).  The
+    card against the port on the CPU (the worker) on a cut, the first
+    INTEGRATE_CUT cells of each batch with the card's inputs there, at
+    the CPU tests' tolerances (``integrate_compare``)."""
+    import torch
+
+    from sctools_tpu_torch import CellData, Pipeline, apply, concat
+    from sctools_tpu_torch.ops import ingest as IG
+    from sctools_tpu_torch.ops import knn_kernel as KK
+    from sctools_tpu_torch.ops import mnn as M
+    from sctools_tpu_torch.ops.graph import _host
+    from sctools_tpu_torch.ops.knn import knn_arrays
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    nb = len(INTEGRATE_KEYS)
+    parts, bounds = integrate_batches(main["raw"], sigma)
+    runs = []
+    t0 = time.perf_counter()
+    merged = concat(parts, label="batch", keys=list(INTEGRATE_KEYS))
+    runs.append({"op": "concat", "s": time.perf_counter() - t0})
+    check(merged.shape == main["raw"].shape,
+          f"concat: shape {merged.shape}")
+    for i, p in enumerate(parts):
+        check((merged.X[bounds[i]:bounds[i + 1]] != p.X).nnz == 0,
+              f"concat: batch {i}'s rows differ from its input")
+    batch = np.asarray(merged.obs["batch"])
+    check(list(batch[bounds[:-1]]) == list(INTEGRATE_KEYS),
+          "concat: the batch labels")
+    codes = np.unique(batch, return_inverse=True)[1]
+    truth = np.asarray(merged.obs["cluster_true"])
+    n = merged.n_cells
+
+    pre, s, peak = timed_run(lambda: Pipeline(MAIN_STEPS[:5]).run(
+        merged, device=dev))
+    runs.append({"op": "main path to 50 PCs", "s": s, "peak_gb": peak})
+
+    def twice(what: str, fn, result, launches: int):
+        """``fn()`` twice on the card, each run timed with its
+        knn_select launches counted; the two ``result(out)`` must be
+        equal bit for bit."""
+        got = []
+        for rep in range(2):
+            KK.knn_select.launches = 0
+            o, s, peak = timed_run(fn)
+            got.append((o, result(o)))
+            runs.append({"op": what, "rep": rep, "s": s, "peak_gb": peak,
+                         "knn_select_launches": KK.knn_select.launches})
+            check(KK.knn_select.launches == launches,
+                  f"{what}: knn_select launched {KK.knn_select.launches} "
+                  f"times, not {launches}")
+        check(same_bits(got[0][1], got[1][1]), f"{what}: two card runs "
+                                               "differ")
+        return got[0][0]
+
+    # the cut's inputs go to the worker first; the card runs meanwhile
+    cut = np.concatenate([bounds[i] + np.arange(INTEGRATE_CUT)
+                          for i in range(nb)])
+    n_ref = int(bounds[-2])
+    ref_raw, q_raw = (CellData(merged.X[rows], obs={
+        k: v[rows] for k, v in merged.obs.items()}, var=dict(merged.var))
+        for rows in (slice(0, n_ref), slice(n_ref, n)))
+
+    cb = twice("integrate.combat", lambda: apply(
+        "integrate.combat", pre, device=dev), lambda o: o.X, 0)
+    check(tuple(cb.X.shape) == (n, pre.n_genes)
+          and bool(torch.isfinite(cb.X).all()), "integrate.combat: X")
+    cb_pca, s, peak = timed_run(lambda: apply(
+        "pca.randomized", cb, device=dev, n_components=50))
+    runs.append({"op": "pca.randomized of combat's X", "s": s,
+                 "peak_gb": peak})
+    hm = twice("integrate.harmony", lambda: apply(
+        "integrate.harmony", pre, device=dev),
+        lambda o: o.obsm["X_harmony"], 0)
+    mn = twice("integrate.mnn", lambda: apply(
+        "integrate.mnn", pre, device=dev), lambda o: o.obsm["X_mnn"],
+        3 * (nb - 1))
+    check(mn.uns["mnn_merge_order"] == list(INTEGRATE_KEYS),
+          f"integrate.mnn merge order {mn.uns['mnn_merge_order']}")
+    for key, o in (("X_harmony", hm), ("X_mnn", mn)):
+        check(tuple(o.obsm[key].shape) == (n, DIM)
+              and bool(torch.isfinite(o.obsm[key]).all()), f"{key}")
+    bb = twice("neighbors.bbknn", lambda: apply(
+        "neighbors.bbknn", hm, device=dev, use_rep="X_harmony"),
+        lambda o: [o.obsp["knn_indices"], o.obsp["knn_distances"]], nb)
+    job = cpu_pool().submit(integrate_cut, {
+        "pre": pre[cut].to_device("cpu"),
+        "bb": CellData(torch.zeros((len(cut), 1)), obs={
+            "batch": batch[cut]}, obsm={
+            "X_harmony": hm.obsm["X_harmony"][cut].cpu()})}, "cpu")
+    bidx = bb.obsp["knn_indices"][:n].cpu().numpy()
+    check(bidx.shape == (n, 3 * nb) and (bidx >= 0).all()
+          and (bidx < n).all(), "neighbors.bbknn: ids")
+    per_batch = np.stack([(codes[bidx] == i).sum(axis=1) for i in range(nb)],
+                         axis=1)
+    check((per_batch == 3).all(),
+          "neighbors.bbknn: not 3 neighbours from each batch in every row")
+
+    # ingest: b3 onto b0–b2
+    ref_out, s, peak = timed_run(lambda: Pipeline(MAIN_STEPS[:5]).run(
+        ref_raw, device=dev))
+    runs.append({"op": "reference b0-b2: main path to 50 PCs", "s": s,
+                 "peak_gb": peak})
+    genes = list(_host(ref_out.var["gene_name"]))
+    query, s, peak = timed_run(lambda: Pipeline(MAIN_STEPS[:3]).run(
+        q_raw, device=dev)[:, genes])
+    runs.append({"op": "query b3: to log1p, the reference's genes", "s": s,
+                 "peak_gb": peak})
+    ing = twice("integrate.ingest", lambda: apply(
+        "integrate.ingest", query, device=dev, ref=ref_out,
+        obs=("cluster",), embeddings=()),
+        lambda o: [o.obsm["X_pca"], o.obs["cluster"],
+                   o.obs["cluster_confidence"]], 1)
+    job_ingest = cpu_pool().submit(integrate_cut, {
+        "query": query[np.arange(INTEGRATE_CUT)].to_device("cpu"),
+        "ref": ref_out[cut[:3 * INTEGRATE_CUT]].to_device("cpu")}, "cpu")
+    nq = n - n_ref
+    right = float((np.asarray(ing.obs["cluster"])[:nq]
+                   == truth[n_ref:].astype(str)).mean())
+    # the same vote inside the reference (each b0–b2 cell from the other
+    # reference cells): what the clusters allow without a batch gap
+    ref_pca = ref_out.obsm["X_pca"][:n_ref]
+    li, ld = knn_arrays(ref_pca, ref_pca, k=15, metric="cosine",
+                        exclude_self=True, refine=64)
+    vote, _ = IG._transfer({"cluster": truth[:n_ref].astype(str)}, {},
+                           ("cluster",), (), li.cpu().numpy(),
+                           ld.cpu().numpy(), n_ref)
+    ref_right = float((vote["cluster"] == truth[:n_ref].astype(str)).mean())
+
+    # quality at full width, with the port's exact kNN on the card
+    quality = {"uncorrected": mix_purity(pre.obsm["X_pca"], codes, truth)}
+    for name, emb in (("harmony", hm.obsm["X_harmony"]),
+                      ("mnn", mn.obsm["X_mnn"]),
+                      ("combat", cb_pca.obsm["X_pca"])):
+        quality[name] = mix_purity(emb, codes, truth)
+    quality["ingest_right"] = right
+    quality["reference_vote_right"] = ref_right
+    base = quality["uncorrected"]
+    for name in ("harmony", "mnn", "combat"):
+        got = quality[name]
+        check(got["mixing"] >= base["mixing"] + MIX_RISE,
+              f"{name}: batch mixing {got['mixing']} did not rise by "
+              f"{MIX_RISE} from {base['mixing']}")
+        check(got["purity"] >= PURITY_KEEP * base["purity"],
+              f"{name}: purity {got['purity']} < {PURITY_KEEP} × "
+              f"{base['purity']}")
+    check(right >= INGEST_KEEP * ref_right,
+          f"integrate.ingest: {right} of b3 right, < {INGEST_KEEP} × the "
+          f"reference's own vote ({ref_right})")
+
+    # the last merge's searches, for the kernels line: b3's rows against
+    # the merged b0–b2, and b3 against its anchors
+    ref_rows = np.arange(n_ref)
+    bat = _host(pre.obsm["X_pca"])[n_ref:n].astype(np.float64)
+    refz = _host(mn.obsm["X_mnn"])[ref_rows].astype(np.float64)
+    search = M.search_on(dev)
+    i1, _ = search(bat, refz, 20)
+    i2, _ = search(refz, bat, 20)
+    bm, _ = M._mutual_pairs(i1[:nq], i2[:n_ref])
+    anchors = np.unique(bm)
+
+    # the cut on the card, then against the worker's CPU run
+    inp = {"pre": pre[cut],
+           "bb": CellData(torch.zeros((len(cut), 1), device=dev), obs={
+               "batch": batch[cut]}, obsm={
+               "X_harmony": hm.obsm["X_harmony"][cut]}),
+           "query": query[np.arange(INTEGRATE_CUT)],
+           "ref": ref_out[cut[:3 * INTEGRATE_CUT]]}
+    on_card = integrate_cut(inp, DEVICE)
+    t0 = time.perf_counter()
+    on_cpu, more = job.result(), job_ingest.result()
+    wait_s = time.perf_counter() - t0
+    on_cpu["s"].update(more.pop("s"))
+    on_cpu.update(more)
+    cmp = integrate_compare(on_card, on_cpu)
+    cmp.update(card_s=on_card["s"], cpu_s=on_cpu["s"], wait_s=wait_s)
+    emit({"phase": "integrate", "card": card, "cells": n,
+          "genes": merged.n_genes, "batches": [int(x) for x in
+                                               np.diff(bounds)],
+          "sigma": sigma, "runs": runs, "quality": quality,
+          "anchors_last_merge": int(len(anchors)), "cut": len(cut),
+          "cpu_compare": cmp, "phase_s": time.perf_counter() - t_phase})
+    return {"q": torch.from_numpy(bat.astype(np.float32)).to(dev),
+            "c": torch.from_numpy(refz.astype(np.float32)).to(dev),
+            "anchors": torch.from_numpy(bat[anchors].astype(np.float32))
+            .to(dev),
+            "ingest_q": ing.obsm["X_pca"][:nq],
+            "ingest_c": ref_out.obsm["X_pca"][:n_ref],
+            "mnn_launches": 3 * (nb - 1), "ingest_launches": 1}
+
+
+def library_cdist_topk(q, c, k: int):
+    """The euclidean yardstick: ``torch.cdist`` + ``torch.topk``
+    (smallest), in query blocks whose distance rows stay under 1 GiB."""
+    import torch
+
+    block = 1 << max(0, (2 ** 28 // c.shape[0]).bit_length() - 1)
+    vals, ids = [], []
+    for q0 in range(0, q.shape[0], block):
+        v, i = torch.topk(torch.cdist(q[q0:q0 + block], c), k, dim=1,
+                          largest=False)
+        vals.append(v)
+        ids.append(i)
+    return torch.cat(vals), torch.cat(ids)
+
+
+def integrate_kernel_rows(integ: dict, card: str, peaks: dict) -> list:
+    """knn_select at phase integrate's shapes: MNN's last merge (b3's
+    17,144 rows against the merged 51,435, euclidean, the k = 20
+    searches' K = 32 and the smoothing's k = 50 against b3's anchors)
+    and ingest's search (b3 against b0–b2's PCA, cosine, refine 64),
+    each with the launches of its op's run on the path."""
+    import torch
+
+    from sctools_tpu_torch.ops.knn import _prep, knn_numpy
+
+    rows = []
+    q, c, a = integ["q"], integ["c"], integ["anchors"]
+    for what, cand, k in (("batch → merged reference", c, 32),
+                          ("smoothing: batch → its anchors", a, 50)):
+        host_q, host_c = q.cpu().numpy(), cand.cpu().numpy()
+        orc, _ = knn_numpy(host_q[:N_COMPARE], host_c, k=15,
+                           metric="euclidean", chunk=256)
+        scale = float((q * q).sum(1).max() + (cand * cand).sum(1).max())
+        row = kernel_case(
+            f"{q.shape[0]}x{cand.shape[0]}x{DIM} k={k} float32 euclidean "
+            f"(integrate.mnn last merge, {what})", q, cand, k, "euclidean",
+            orc, integ["mnn_launches"], card, peaks, all_bins=False,
+            library=library_cdist_topk, tol=1e-5 * max(1.0, scale))
+        row["launches_note"] = ("the op's launches a run: 2 a merge at "
+                                "K = 32, 1 a merge at K = 64")
+        row["library_call"] = "torch.cdist + torch.topk"
+        rows.append(row)
+    qi = _prep(integ["ingest_q"], "cosine", torch.float32)
+    ci = _prep(integ["ingest_c"], "cosine", torch.float32)
+    orc, _ = knn_numpy(integ["ingest_q"][:N_COMPARE].cpu().numpy(),
+                       integ["ingest_c"].cpu().numpy(), k=15,
+                       metric="cosine", chunk=256)
+    rows.append(kernel_case(
+        f"{qi.shape[0]}x{ci.shape[0]}x{DIM} k=64 float32 (integrate.ingest:"
+        " b3 onto b0-b2's PCA, refine 64)", qi, ci, 64, "cosine", orc,
+        integ["ingest_launches"], card, peaks, all_bins=False))
+    return rows
+
+
+# ----------------------------------------------------------------------
 # 6d. layouts
 # ----------------------------------------------------------------------
 
@@ -2563,12 +3087,9 @@ def stream_phase(card: str) -> dict:
     host = scores.cpu().numpy()
     sample = np.sort(np.random.default_rng(0).choice(n, N_COMPARE,
                                                      replace=False))
-    t0 = time.perf_counter()
-    oracle, _ = knn_numpy(host[sample], host, k=15, metric="cosine",
-                          chunk=256)
-    oracle_s = time.perf_counter() - t0
-    recall = recall_at_k(idx[sample].cpu().numpy(), oracle, k=10)
-    check(recall >= 0.99, f"stream: recall@10 {recall} < 0.99")
+    # the float64 oracle on the worker while the card repeats the passes
+    oracle_job = cpu_pool().submit(knn_numpy, host[sample], host, k=15,
+                                   metric="cosine", chunk=256)
     del dist, host
 
     # stats + HVG twice more: the set may move by near-ties only
@@ -2584,6 +3105,11 @@ def stream_phase(card: str) -> dict:
                           "stream_hvg, run 2 vs run 3")]
 
     store = store_phase(src, card)
+    t0 = time.perf_counter()
+    oracle, _ = oracle_job.result()
+    oracle_wait_s = time.perf_counter() - t0
+    recall = recall_at_k(idx[sample].cpu().numpy(), oracle, k=10)
+    check(recall >= 0.99, f"stream: recall@10 {recall} < 0.99")
     emit({"phase": "stream", "card": card, "cells": n,
           "genes": STREAM_GENES, "capacity": STREAM_CAPACITY,
           "shards": src.n_shards, "shard_rows": src.shard_rows,
@@ -2593,7 +3119,8 @@ def stream_phase(card: str) -> dict:
           "knn_select_launches": launches, "refine": STREAM_REFINE,
           "refine_mode": config.resolved_refine_mode(n),
           "recall_at_10": recall, "recall_queries": N_COMPARE,
-          "oracle_s": oracle_s, "explained_variance_top5": ev[:5].tolist(),
+          "oracle_wait_s": oracle_wait_s,
+          "explained_variance_top5": ev[:5].tolist(),
           "hvg_sym_diffs": hvg_diffs})
     # the source's shards, the stats, HVG and kNN ids stay for the
     # stream_mesh phase, which frees them
@@ -2887,11 +3414,11 @@ def mesh_phase(stream: dict, graph: dict, card: str) -> dict:
     one_d_sorted = np.sort(one_d.cpu().numpy(), axis=1)
     sample = np.sort(np.random.default_rng(1).choice(n, N_SAMPLED,
                                                      replace=False))
-    t0 = time.perf_counter()
-    oracle, _ = knn_numpy(scores[torch.from_numpy(sample).to(dev)].cpu()
-                          .numpy(), scores.cpu().numpy(), k=15,
-                          metric="cosine", chunk=256)
-    oracle_s = time.perf_counter() - t0
+    # the float64 oracle on the worker while the card runs the meshes
+    oracle_job = cpu_pool().submit(
+        knn_numpy, scores[torch.from_numpy(sample).to(dev)].cpu().numpy(),
+        scores.cpu().numpy(), k=15, metric="cosine", chunk=256)
+    sampled = []  # (run, its ids of the sampled queries)
     meshes = {f"cuda:0 x {MESH_SHARDS}": make_mesh(
         devices=["cuda:0"] * MESH_SHARDS)}
     meshes[f"{torch.cuda.device_count()} card(s)"] = make_mesh()
@@ -2919,14 +3446,12 @@ def mesh_phase(stream: dict, graph: dict, card: str) -> dict:
             d_ok = np.allclose(np.sort(dist.cpu().numpy(), axis=1),
                                one_d_sorted, rtol=1e-3, atol=5e-3)
             check(d_ok, f"{what}: distances beyond rtol 1e-3, atol 5e-3")
-            recall = recall_at_k(host_i[sample], oracle, k=10)
-            check(recall >= 0.99, f"{what}: recall@10 {recall} < 0.99")
+            sampled.append((what, host_i[sample]))
             runs.append({"mesh": label, "shards": mesh.size,
                          "strategy": strategy, "s": wall,
                          "knn_select_launches": launches,
                          "recall_vs_single": rec_one,
-                         "bitwise_equal_to_single": bitwise,
-                         "recall_at_10": recall})
+                         "bitwise_equal_to_single": bitwise})
             del out, idx, dist
 
     # MAGIC over 4 shards of cuda:0 on the graph phase's output
@@ -2954,8 +3479,15 @@ def mesh_phase(stream: dict, graph: dict, card: str) -> dict:
         magic.append({"strategy": strategy, "shards": mesh.size, "s": wall,
                       "matvec_launches": launches, "max_abs_err": err})
         del out
+    t0 = time.perf_counter()
+    oracle, _ = oracle_job.result()
+    oracle_wait_s = time.perf_counter() - t0
+    for run, (what, ids) in zip(runs, sampled):
+        run["recall_at_10"] = recall_at_k(ids, oracle, k=10)
+        check(run["recall_at_10"] >= 0.99,
+              f"{what}: recall@10 {run['recall_at_10']} < 0.99")
     emit({"phase": "mesh", "card": card, "cells": n, "k": 15,
-          "single_knn_s": single_s, "oracle_s": oracle_s,
+          "single_knn_s": single_s, "oracle_wait_s": oracle_wait_s,
           "recall_queries": N_SAMPLED, "knn_multichip": runs,
           "magic": {"cells": g, "t": MAGIC_T, "unsharded_s": ref_s,
                     "runs": magic}})
@@ -3615,14 +4147,17 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
                 launches: int, card: str, peaks: dict,
                 ids_for_recall=None, n_bins: int | None = None,
                 plain_reps: int = 3, library_reps: int = 5,
-                all_bins: bool = True) -> dict:
+                all_bins: bool = True, library=None,
+                tol: float | None = None) -> dict:
     """Kernel against plain version on the first N_COMPARE queries,
     recall@10 of those queries against the float64 ``oracle`` ids, and
     the times: the exact kernel, or the binned one with ``n_bins`` (its
     ids held with the bin-aware near-tie rule, recall gated at 0.98).
     The comparison calls are the timings' warm-up; the plain version is
     timed over 3 calls (seconds each at the wide shape).  ``all_bins``
-    adds ``binned_all_bins`` to an exact row."""
+    adds ``binned_all_bins`` to an exact row.  ``library`` is the
+    yardstick (default ``library_topk``, the inner-product one), ``tol``
+    the value tolerance (default 1e-5, 1e-3 for bf16)."""
     import torch
 
     from sctools_tpu_torch.config import true_f32
@@ -3643,7 +4178,8 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
             qq, c, k=k, n_bins=n_bins, metric=metric,
             query_block=PLAIN_BLOCK, cand_block=PLAIN_BLOCK)
     dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
-    tol = 1e-3 if dtype == "bfloat16" else 1e-5
+    if tol is None:
+        tol = 1e-3 if dtype == "bfloat16" else 1e-5
     kv, ki = kernel()
     if n_bins is None:
         (pv, pi), surv = plain(q[:N_COMPARE]), None
@@ -3663,7 +4199,7 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
     ms = cuda_ms(kernel, warmup=False)
     plain_ms = cuda_ms(lambda: plain(q), reps=plain_reps, warmup=False)
     with true_f32():
-        library_ms = cuda_ms(lambda: library_topk(q, c, k),
+        library_ms = cuda_ms(lambda: (library or library_topk)(q, c, k),
                              reps=library_reps)
     nq, d = q.shape
     nc = c.shape[0]
@@ -4182,6 +4718,7 @@ def run() -> int:
     neighbors_phase(main_out, card)
     cluster = cluster_phase(main_out, card)
     stats = stats_phase(main_out, card)
+    integ = integrate_phase(main_out, card)
     lay = layouts_phase(graph, card)
     vel = velocity_phase(card)
     recipes_finish()  # the recipes' CPU runs, on the worker meanwhile
@@ -4206,6 +4743,7 @@ def run() -> int:
     kernels += diffuse_matvec_rows(mesh, card, peaks)
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)
     kernels += velocity_kernel_rows(lay, vel, card, peaks)
+    kernels += integrate_kernel_rows(integ, card, peaks)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,13 @@ imports), with the same dotted op names and containers:
     out = sct.apply("embed.tsne", out)
     host = out.to_host()
 
+Samples are merged on the host with ``concat`` and integrated on the
+card (``integrate.combat``, ``harmony``, ``mnn``, ``ingest``):
+
+    merged = sct.concat([run_a, run_b], label="batch", keys=["a", "b"])
+    out = sct.Pipeline(steps[:5]).run(merged)     # the steps above to PCA
+    out = sct.apply("integrate.harmony", out)     # obsm["X_harmony"]
+
 The kNN search, the graph tail's diffusion steps and Jaccard weights,
 and the t-SNE repulsion run through hand-written CUDA kernels
 (``csrc/*.cu``), built with nvcc at the first launch.  ``parallel``
@@ -26,11 +33,14 @@ runs the kNN and the diffusion over a single-process mesh of devices
 
 from . import data, ops, parallel, utils
 from .config import config, configure
+from .data.concat import concat
 from .data.dataset import CellData
+from .data.io import from_dense, from_scipy
 from .data.sparse import SparseCells
 from .recipes import recipe_pipeline
 from .registry import Pipeline, Transform, apply, get, names, register
 
 __all__ = ["CellData", "Pipeline", "SparseCells", "Transform", "apply",
-           "config", "configure", "data", "get", "names", "ops",
-           "parallel", "recipe_pipeline", "register"]
+           "concat", "config", "configure", "data", "from_dense",
+           "from_scipy", "get", "names", "ops", "parallel",
+           "recipe_pipeline", "register"]

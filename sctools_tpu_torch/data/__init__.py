@@ -1,5 +1,6 @@
 """Containers and data sources of the port."""
 
-from . import dataset, io, shardstore, sparse, stream, synthetic
+from . import concat, dataset, io, shardstore, sparse, stream, synthetic
 
-__all__ = ["dataset", "io", "shardstore", "sparse", "stream", "synthetic"]
+__all__ = ["concat", "dataset", "io", "shardstore", "sparse", "stream",
+           "synthetic"]

@@ -1,8 +1,9 @@
-"""Host IO of the streamed path: shard-store chunk files and the h5ad
-shard reader.
+"""Host IO: the in-memory entry points, and the streamed path's
+shard-store chunk files and h5ad shard reader.
 
-Counterparts of ``write_csr_chunk``, ``read_csr_chunk`` and
-``shard_iter`` in ``sctools_tpu/data/io.py``, with the same files.
+Counterparts of ``from_scipy``, ``from_dense``, ``write_csr_chunk``,
+``read_csr_chunk`` and ``shard_iter`` in ``sctools_tpu/data/io.py``,
+with the same files.
 ``h5py`` is imported inside ``shard_iter``: the h5ad reader is the
 only part of the port that needs it.
 """
@@ -16,7 +17,18 @@ import numpy as np
 from ..config import config, round_up
 from ..utils.checkpoint import (_read_arrays, load_npz_verified,
                                 save_npz_verified)
+from .dataset import CellData
 from .sparse import SparseCells
+
+
+def from_scipy(X, obs=None, var=None, **kw) -> CellData:
+    """A host ``CellData`` over a scipy sparse matrix (as CSR)."""
+    return CellData(X.tocsr(), obs=obs or {}, var=var or {}, **kw)
+
+
+def from_dense(X, obs=None, var=None, **kw) -> CellData:
+    """A host ``CellData`` over a dense array."""
+    return CellData(np.asarray(X), obs=obs or {}, var=var or {}, **kw)
 
 
 def write_csr_chunk(path: str, data, indices, indptr, shape,

@@ -115,7 +115,8 @@ def test_no_module_imports_jax_or_reference(path):
                                     "stream_sweep.py",
                                     "refine_sweep.py",
                                     "segment_sweep.py",
-                                    "mesh_probe.py"])
+                                    "mesh_probe.py",
+                                    "integrate_probe.py"])
 def test_card_scripts_import_no_jax_or_reference(script):
     for name in _imports(_ROOT / script):
         top = name.split(".")[0]
@@ -201,7 +202,8 @@ def test_graph_kernel_wrapper_has_no_exception_handler(name):
     "velocity.lineage_drivers", "velocity.recover_dynamics",
     "velocity.latent_time", "de.rank_genes_groups",
     "de.filter_rank_genes_groups", "score.genes", "score.cell_cycle",
-    "metrics.morans_i", "metrics.gearys_c"])
+    "metrics.morans_i", "metrics.gearys_c", "integrate.combat",
+    "integrate.harmony", "integrate.mnn"])
 def test_graph_ops_default_to_the_card_and_raise_without_one(op):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None resolves to it")
@@ -212,6 +214,34 @@ def test_graph_ops_default_to_the_card_and_raise_without_one(op):
         metacell=np.zeros(16, np.int32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sctt.apply(op, ds)
+
+
+def test_ingest_defaults_to_the_card_and_raises_without_one():
+    """``integrate.ingest`` takes its reference as ``ref=``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: None resolves to it")
+    ds = sctt.data.synthetic.synthetic_counts(16, 8, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sctt.apply("integrate.ingest", ds, ref=ds)
+
+
+def test_concat_and_the_new_modules_load_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "from sctools_tpu_torch import concat, from_dense, from_scipy\n"
+        "import sctools_tpu_torch.ops.integrate, sctools_tpu_torch.ops.mnn\n"
+        "import sctools_tpu_torch.ops.ingest\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'sctools_tpu' or "
+        "m.startswith('sctools_tpu.'))\n"
+        "print(repr(bad))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(_ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(_ROOT),
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
 
 
 def test_wrapper_dispatches_by_device_and_counts_only_launches():
@@ -248,7 +278,8 @@ def test_registry_is_separate_from_the_reference():
         "embed.tsne", "embed.umap", "graph.connectivities",
         "graph.diffusion_operator", "graph.jaccard", "graph.paga",
         "graph.reorder", "graph.restore_order", "hvg.select",
-        "impute.magic",
+        "impute.magic", "integrate.combat", "integrate.harmony",
+        "integrate.ingest", "integrate.mnn",
         "metacells.aggregate", "metacells.seacells", "metrics.gearys_c",
         "metrics.morans_i", "neighbors.bbknn",
         "neighbors.knn", "neighbors.knn_multichip", "normalize.clr",
@@ -265,7 +296,7 @@ def test_registry_is_separate_from_the_reference():
         "velocity.latent_time", "velocity.lineage_drivers",
         "velocity.moments", "velocity.recover_dynamics",
         "velocity.terminal_states"]
-    assert len(sctt.names()) == 62  # of the reference's 79
+    assert len(sctt.names()) == 66  # of the reference's 79
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     meta = sctt.registry.metadata("neighbors.knn_multichip")
     assert meta["sharding"] == "cells" and meta["collective"] is True

@@ -108,7 +108,7 @@ def test_registry_holds_the_new_names():
     names = sctt.names()
     for name in NEW_NAMES:
         assert name in names, name
-    assert len(names) == 62
+    assert len(names) == 66
 
 
 # ------------------------------------------------------------------ qc
