@@ -143,6 +143,32 @@ Phases, each printing one JSON line, each fatal on a failed check:
              times a spectral start; each optimiser on the card against
              the CPU from one start and one draw of negatives after 1
              and 10 epochs (``LAYOUT_CPU_TOL``); walls, peak memory;
+6d'. analysis — the last analysis ops at configs[1]'s width, each twice
+             on the card (bit for bit; Wishbone once), against the port
+             on the CPU (the worker, compared after phase velocity):
+             ``qc.doublet_score`` at its defaults on phase main's raw
+             counts with the last 2,048 rows replaced by cross-cluster
+             sums (68,579 cells, k_adj = 393: knn_select once a run, its
+             lists in device memory; the two runs equal but on near-tie
+             rows of the search, since the PCA adds by atomics; injected
+             doublets' AUC > 0.75, recall@10 ≥ 0.99 of the 205,737 × 30
+             search; the first 8,192 cells on the CPU from the card's
+             PCA: the doublets' projection within 1e-4 of its scale,
+             scores equal but on near-tie rows); ``embed.density`` on
+             phase layouts' UMAP (ungrouped and by cluster, 1e-5 of the
+             CPU); ``de.marker_gene_overlap`` on phase stats' t-test
+             ranking (equal to the CPU); ``palantir.gene_trends`` on
+             phase palantir's pseudotime, lineage 0, 2,000 genes (rtol
+             1e-5); ``da.neighborhoods`` on the main graph with four
+             samples and cluster 1 planted in condition A at 0.8, both
+             modes (results equal to the CPU; the planted cluster called
+             at ≥ 5× the rate elsewhere, ≤ 5 % elsewhere);
+             ``wishbone.run`` (150 waypoints; min-plus distances within
+             rtol 1e-5 of dijkstra; trajectory within 1e-3 and branches
+             on ≥ 99 % of the CPU's); ``embed.phate`` on a 16,384-cell
+             cut at t = 30 (finite, bit for bit) and with t by the
+             entropy knee on a 4,096-cell cut (the CPU's t, pairwise
+             distances Spearman > 0.99);
 6e. velocity — scVelo's workflow on a seeded stand-in
              (``velocity_standin``: 68,579 cells × 2,000 genes, a trunk
              splitting into two arms, splicing-ODE Poisson counts):
@@ -213,7 +239,7 @@ Phases, each printing one JSON line, each fatal on a failed check:
              atol 1e-4 of unsharded MAGIC, graph_matvec launched 3 × P²
              or 3 × P times;
 10. edges  — the kNN kernels against their plain versions at small
-             shapes that reach their corners (k = 1 to 256, d = 1 and
+             shapes that reach their corners (k = 1 to 512, d = 1 and
              256, euclidean, self exclusion, bf16, fewer candidates than
              k or than bins, n_bins 128 to 1024, exact ties; for
              knn_select also row counts one off its query tile,
@@ -271,7 +297,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              merge (17,144 × 51,435 × 50, euclidean, K = 32, and the
              smoothing's k = 50 against b3's anchors; yardstick
              ``torch.cdist`` + ``torch.topk``) and ingest's (17,144 ×
-             51,435 × 50, cosine, k = 64).
+             51,435 × 50, cosine, k = 64), and at phase analysis's:
+             the doublet search (205,737² × 30, euclidean, self
+             excluded, k = 393) and PHATE's cut (16,384² × 50, k = 15).
 
 The float64 kNN oracles of phases stream and mesh run on the worker
 process while the card goes on; their recalls are checked at the end of
@@ -284,6 +312,7 @@ the package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1229,7 +1258,8 @@ def palantir_phase(main: dict, card: str) -> dict:
     p = PL.directed_chain_arrays(idx, torch.from_numpy(ms).to(dev), pt)
     return {"launches": launches["rmatvec"], "idx": idx,
             "spectral": (s_edges, v0, spectral_matvec),
-            "fate": (p, fate.contiguous(), launches["fate_matvec"])}
+            "fate": (p, fate.contiguous(), launches["fate_matvec"]),
+            "out": out}
 
 
 # ----------------------------------------------------------------------
@@ -1801,7 +1831,7 @@ def stats_phase(main: dict, card: str) -> dict:
     return {"idx": torch.from_numpy(idx).to(dev),
             "w": torch.from_numpy(w.astype(np.float32)).to(dev),
             "x": x - x.mean(dim=0, keepdim=True),
-            "launches": 2 * blocks}
+            "launches": 2 * blocks, "ttest": tt}
 
 
 # ----------------------------------------------------------------------
@@ -1964,12 +1994,14 @@ def _integrate_cut_pre(pre, dev, timed) -> dict:
     return out
 
 
-def near_tie_rows(a_idx, a_d, b_idx, b_d, what: str) -> np.ndarray:
+def near_tie_rows(a_idx, a_d, b_idx, b_d, what: str, atol: float = 0.0
+                  ) -> np.ndarray:
     """Rows whose neighbour sets differ, each checked to be a near-tie:
     the ids only one list holds pair up, by sorted distance, with ids
     only the other holds at distances within INTEGRATE_TOL["near_tie"]
-    (relative); the shared ids' distances agree within it too.  Returns
-    the rows that differ."""
+    (relative) + ``atol`` (how far the two searches' points may lie
+    apart moves their distances); the shared ids' distances agree
+    within it too.  Returns the rows that differ."""
     tie = INTEGRATE_TOL["near_tie"]
     check(a_idx.shape == b_idx.shape, f"{what}: list shapes differ")
     diff = np.nonzero((np.sort(a_idx, axis=1)
@@ -1978,7 +2010,7 @@ def near_tie_rows(a_idx, a_d, b_idx, b_d, what: str) -> np.ndarray:
         da = np.sort(a_d[i][~np.isin(a_idx[i], b_idx[i])])
         db = np.sort(b_d[i][~np.isin(b_idx[i], a_idx[i])])
         check(len(da) == len(db) and np.all(
-            np.abs(da - db) <= tie * np.maximum(np.abs(db), 1.0)),
+            np.abs(da - db) <= tie * np.maximum(np.abs(db), 1.0) + atol),
             f"{what}: row {i} differs beyond a near-tie ({da} vs {db})")
     same = np.setdiff1d(np.arange(len(a_idx)), diff)
     a_s = np.sort(a_d[same], axis=1)
@@ -1986,7 +2018,7 @@ def near_tie_rows(a_idx, a_d, b_idx, b_d, what: str) -> np.ndarray:
     fin = np.isfinite(b_s)
     check(np.array_equal(np.isfinite(a_s), fin) and np.all(
         np.abs(a_s[fin] - b_s[fin]) <= tie * np.maximum(np.abs(b_s[fin]),
-                                                        1.0)),
+                                                        1.0) + atol),
           f"{what}: distances of the same neighbours differ beyond {tie}")
     return diff
 
@@ -2423,7 +2455,624 @@ def layouts_phase(graph: dict, card: str) -> dict:
     s_edges, _, _ = _sym_normalized_edges(idx, conn)
     gen = torch.Generator(device=dev).manual_seed(0)
     v0 = torch.randn((n, 2 + 1 + 5), generator=gen, device=dev)
-    return {"idx": idx, "spectral": (s_edges, v0, launches)}
+    return {"idx": idx, "spectral": (s_edges, v0, launches),
+            "umap": results["embed.umap"]}
+
+
+# ----------------------------------------------------------------------
+# 6d'. analysis
+# ----------------------------------------------------------------------
+
+N_DOUBLETS = 2048  # last rows of the doublet input: cross-cluster sums
+DOUBLET_SEED = 20  # numpy default_rng seed of those pairs and PHATE's sketch
+DOUBLET_CUT = 8192  # first cells of the doublet card-against-CPU cut
+DOUBLET_AUC = 0.75  # tests/test_doublet.py:44's gate
+DA_SEED = 21  # numpy default_rng seed of the planted enrichment
+DA_PLANT = 0.8  # cluster 1's cells go to a condition-A sample with this
+DA_CLUSTER = 1
+DA_ELSEWHERE = 0.05  # most share of the other index cells called
+DA_RATIO = 5.0  # planted cluster's call rate against the rest's, at least
+WISHBONE_WAYPOINTS = 150
+PHATE_CELLS, PHATE_AUTO_CELLS, PHATE_T = 16_384, 4_096, 30
+ANALYSIS_TOL = {"projection": 1e-4, "density": 1e-5, "trends": 1e-5,
+                "std": 1e-4, "trajectory": 1e-3, "branch": 0.99,
+                "dijkstra": 1e-5, "phate": 0.99}
+
+
+def doublet_input(raw):
+    """The main phase's raw counts with the last N_DOUBLETS rows replaced
+    by sums of random cross-cluster pairs of the other rows
+    (``default_rng(DOUBLET_SEED)``): (host CellData, is_doublet)."""
+    import scipy.sparse as sp
+
+    from sctools_tpu_torch import CellData
+
+    X = raw.X.tocsr()
+    n = X.shape[0]
+    m = n - N_DOUBLETS
+    truth = np.asarray(raw.obs["cluster_true"])
+    rng = np.random.default_rng(DOUBLET_SEED)
+    i = rng.integers(0, m, size=4 * N_DOUBLETS)
+    j = rng.integers(0, m, size=4 * N_DOUBLETS)
+    keep = np.flatnonzero(truth[i] != truth[j])[:N_DOUBLETS]
+    Xd = sp.vstack([X[:m], X[i[keep]] + X[j[keep]]]).tocsr()
+    is_doublet = np.arange(n) >= m
+    return CellData(Xd.astype(np.float32), var=dict(raw.var)), is_doublet
+
+
+def excl_oracle(x, rows, k: int) -> np.ndarray:
+    """float64 euclidean top ``k`` ids of ``x[rows]`` against all of
+    ``x``, each row's own id excluded."""
+    x = np.asarray(x, np.float64)
+    out = np.empty((len(rows), k), np.int64)
+    n2 = (x * x).sum(1)
+    for lo in range(0, len(rows), 256):
+        r = rows[lo:lo + 256]
+        d = n2[r, None] - 2.0 * x[r] @ x.T + n2[None, :]
+        d[np.arange(len(r)), r] = np.inf
+        part = np.argpartition(d, k, axis=1)[:, :k]
+        out[lo:lo + 256] = np.take_along_axis(
+            part, np.argsort(np.take_along_axis(d, part, 1), 1), 1)
+    return out
+
+
+def host_array(v) -> np.ndarray:
+    return np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+
+
+@contextlib.contextmanager
+def recorded_search(dev):
+    """Within the block, the doublet op's neighbour search (``knn_arrays``
+    on the card, ``knn_numpy`` on the CPU) appends (its query rows, ids,
+    distances) to the yielded list."""
+    from sctools_tpu_torch.ops import doublet as D
+
+    name = "knn_numpy" if dev.type == "cpu" else "knn_arrays"
+    search = getattr(D, name)
+    found = []
+
+    def record(*a, **kw):
+        idx, dist = search(*a, **kw)
+        found.append((a[0], idx, dist))
+        return idx, dist
+
+    setattr(D, name, record)
+    try:
+        yield found
+    finally:
+        setattr(D, name, search)
+
+
+def doublet_cut(csr, device, pca=None) -> dict:
+    """The doublet op's stages on ``csr`` (host raw counts) on
+    ``device``: the observed PCA (or ``pca`` = (observed scores,
+    loadings, gene means) given), the simulated doublets' projection on
+    it, the scores, and the search's ids and distances (the kernel on
+    the card, ``knn_numpy`` on the CPU, recorded)."""
+    import torch
+
+    from sctools_tpu_torch import CellData
+    from sctools_tpu_torch.ops import doublet as D
+    from sctools_tpu_torch.ops.normalize import _library_size_sparse
+    from sctools_tpu_torch.ops.pca import randomized_pca_arrays
+
+    dev = torch.device(device)
+    x = CellData(csr).to_device(dev).X
+    n = x.n_cells
+    n_sim, _, k_adj = D._resolve_params(n, 2.0, None)
+    t0 = time.perf_counter()
+    if pca is None:
+        x_scaled, _ = _library_size_sparse(x, 1e4)
+        scores, comps, _, mu = randomized_pca_arrays(
+            x_scaled.with_data(torch.log1p(x_scaled.data)), n_components=30)
+        obs = scores[:n]
+    else:
+        obs, comps, mu = (torch.from_numpy(v).to(dev) for v in pca)
+    sim = D.project_doublets(x, torch.from_numpy(D._sample_pairs(
+        n, n_sim, 0)), comps, mu, 1e4)
+    with recorded_search(dev) as found:
+        scores = D._neighbor_scores(obs, sim, k_adj, "euclidean", 0.06)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    idx, dist = (host_array(v[:n + n_sim]) for v in found[0][1:])
+    return {"pca": tuple(host_array(v) for v in (obs, comps, mu)),
+            "sim": host_array(sim), "scores": np.concatenate(scores),
+            "idx": idx, "dist": dist, "s": time.perf_counter() - t0}
+
+
+def density_cpu(umap, labels) -> dict:
+    """``embed.density`` of the layout ``umap`` (host) on the CPU,
+    ungrouped and by ``labels``."""
+    import torch
+
+    from sctools_tpu_torch import CellData, apply
+
+    t0 = time.perf_counter()
+    d = CellData(torch.zeros((len(umap), 1)), obs={"cluster_true": labels},
+                 obsm={"X_umap": torch.from_numpy(umap)})
+    out = {"umap_density": apply("embed.density", d, device="cpu")
+           .obs["umap_density"].numpy(),
+           "umap_density_cluster_true": apply(
+               "embed.density", d, device="cpu", groupby="cluster_true")
+           .obs["umap_density_cluster_true"].numpy()}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def wishbone_cpu(idx, dist, x_pca) -> dict:
+    """``wishbone.run(start_cell=0)`` on the CPU (scipy dijkstra) on the
+    given graph and embedding, with its distances recorded."""
+    import torch
+
+    from sctools_tpu_torch import CellData, apply
+    from sctools_tpu_torch.carry import graph_from_numpy
+    from sctools_tpu_torch.ops import wishbone as W
+
+    t0 = time.perf_counter()
+    d = graph_from_numpy(CellData(torch.zeros((len(idx), 1)), obsm={
+        "X_pca": torch.from_numpy(x_pca)}), idx, dist)
+    found = []
+    oracle = W.dijkstra_distances
+
+    def record(*a):
+        found.append(oracle(*a))
+        return found[-1]
+
+    W.dijkstra_distances = record
+    try:
+        out = apply("wishbone.run", d, device="cpu", start_cell=0,
+                    n_waypoints=WISHBONE_WAYPOINTS)
+    finally:
+        W.dijkstra_distances = oracle
+    return {"tau": out.obs["wishbone_trajectory"].numpy(),
+            "branch": out.obs["wishbone_branch"].numpy(),
+            "waypoints": out.uns["wishbone_waypoints"], "D": found[0],
+            "s": time.perf_counter() - t0}
+
+
+def phate_cpu(idx, dist, sketch) -> dict:
+    """``embed.phate`` (t by the entropy knee) on the CPU on the given
+    graph with the given sketch."""
+    import torch
+
+    from sctools_tpu_torch import CellData, apply
+    from sctools_tpu_torch.carry import graph_from_numpy
+
+    t0 = time.perf_counter()
+    d = graph_from_numpy(CellData(torch.zeros((len(idx), 1))), idx, dist)
+    out = apply("embed.phate", d, device="cpu", sketch=sketch)
+    return {"emb": out.obsm["X_phate"].numpy(), "t": out.uns["phate_t"],
+            "s": time.perf_counter() - t0}
+
+
+def pair_spearman(a, b, pairs: int = 20_000, seed: int = 0) -> float:
+    """Spearman correlation of the pairwise distances of ``pairs``
+    random pairs of rows in two embeddings (tests/test_phate.py:54)."""
+    from scipy.stats import spearmanr
+
+    rng = np.random.default_rng(seed)
+    i, j = rng.integers(0, len(a), pairs), rng.integers(0, len(a), pairs)
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(spearmanr(np.linalg.norm(a[i] - a[j], axis=1),
+                           np.linalg.norm(b[i] - b[j], axis=1))[0])
+
+
+def auc(pos, neg) -> float:
+    """Rank AUC: P(score_pos > score_neg) (tests/test_doublet.py:11)."""
+    from scipy.stats import rankdata
+
+    r = rankdata(np.concatenate([pos, neg]))
+    return float((r[:len(pos)].sum() - len(pos) * (len(pos) + 1) / 2)
+                 / (len(pos) * len(neg)))
+
+
+def da_design(truth, n: int):
+    """Four samples b0-b3 on integrate_batches' contiguous bounds,
+    condition A = b0 and b1, B = b2 and b3; each cell of cluster
+    DA_CLUSTER moves to a sample of A (b0 or b1) with probability
+    DA_PLANT, else of B (``default_rng(DA_SEED)``).  Returns (condition,
+    sample, planted mask)."""
+    b = len(INTEGRATE_KEYS)
+    bounds = np.concatenate([[0], np.cumsum(
+        [n // b + (i < n % b) for i in range(b)])])
+    samp = np.searchsorted(bounds, np.arange(n), side="right") - 1
+    planted = np.asarray(truth) == DA_CLUSTER
+    rng = np.random.default_rng(DA_SEED)
+    to_a = rng.random(n) < DA_PLANT
+    pick = rng.integers(0, 2, n)
+    samp = np.where(planted, np.where(to_a, pick, 2 + pick), samp)
+    return (np.where(samp < 2, "A", "B"),
+            np.asarray(INTEGRATE_KEYS)[samp], planted)
+
+
+def analysis_phase(main: dict, pal: dict, stats: dict, lay: dict,
+                   card: str) -> dict:
+    """The last analysis ops at configs[1]'s width, each on the card
+    twice (bit for bit, but the doublets; Wishbone once) and against the
+    port on the CPU:
+
+    * ``qc.doublet_score`` at its defaults (k_adj = 393) on the main
+      raw counts with the last N_DOUBLETS rows replaced by cross-cluster
+      sums (``doublet_input``), its two runs equal but on rows where
+      their searches part at a near-tie (the PCA's ``Xᵀ Q`` adds by
+      atomics on the card): knn_select launched once a run; the
+      injected doublets' AUC > DOUBLET_AUC, the simulated doublets'
+      mean above the singlets'; recall@10 ≥ 0.99 of the 205,737 × 30
+      search against float64 on 1,024 rows; the card against the CPU
+      (worker) on the first DOUBLET_CUT cells, from the card's PCA
+      (its randomized trailing components part between devices): the
+      doublets' projection within 1e-4 of its scale, scores equal but
+      on near-tie rows (``near_tie_rows``);
+    * ``embed.density`` on the layouts phase's UMAP, ungrouped and by
+      ``cluster_true``: within 1e-5 of the CPU (worker);
+    * ``de.marker_gene_overlap`` on the stats phase's t-test ranking,
+      the three methods: equal to the CPU;
+    * ``palantir.gene_trends`` on the palantir phase's pseudotime and
+      lineage 0 over the 2,000 HVG genes: within rtol 1e-5 of the CPU;
+    * ``da.neighborhoods`` on the main graph with ``da_design``'s
+      samples, both modes: the planted cluster's index cells called
+      (FDR < 0.1, logFC > 0) at ≥ DA_RATIO × the rate elsewhere, which
+      stays ≤ DA_ELSEWHERE; logFC > 0 on ≥ 90 % of the planted cells;
+      results equal to the CPU's;
+    * ``wishbone.run(start_cell=0)``, 150 waypoints, on the main graph
+      and X_pca, once (its host work is most of its time): the min-plus
+      distances within rtol 1e-5 of scipy's
+      dijkstra (worker), the trajectory finite and, inside the start's
+      cluster, rising with the distance from the start (Spearman > 0:
+      the synthetic clusters are blobs, not trajectories; 0.33 on a
+      20,000-cell CPU run); the card against the CPU: trajectory within
+      1e-3 of its range, branches equal on ≥ 99 % of the cells;
+    * ``embed.phate`` on the first PHATE_CELLS cells' X_pca with their
+      own 15-NN (euclidean) at t = PHATE_T: finite, bit for bit; and on
+      the first PHATE_AUTO_CELLS cells with t by the entropy knee
+      against the CPU (worker) with one sketch: the same t, pairwise
+      distances Spearman > 0.99.
+
+    The CPU runs go to the worker; their compares run in the returned
+    ``finish()``, which ``run`` calls after phase velocity.  Returns
+    (the kernel rows' inputs, finish)."""
+    import torch
+
+    from sctools_tpu_torch import CellData, apply
+    from sctools_tpu_torch.ops import doublet as D
+    from sctools_tpu_torch.ops import knn_kernel as KK
+    from sctools_tpu_torch.ops import wishbone as W
+    from sctools_tpu_torch.ops.knn import recall_at_k
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    runs, cmp = [], {}
+    out = main["out"]
+    n = out.n_cells
+    truth = out.obs["cluster_true"][:n].cpu().numpy()
+    idx_h = out.obsp["knn_indices"][:n].cpu().numpy()
+    dist_h = out.obsp["knn_distances"][:n].cpu().numpy()
+    xpca_h = out.obsm["X_pca"][:n].cpu().numpy()
+    umap_h = lay["umap"].cpu().numpy()
+
+    # the CPU runs go to the worker first, in the order they are read
+    data, is_dbl = doublet_input(main["raw"])
+    cut_csr = data.X[:DOUBLET_CUT]
+    pool = cpu_pool()
+    jobs = {"density": pool.submit(density_cpu, umap_h, truth),
+            "wishbone": pool.submit(wishbone_cpu, idx_h, dist_h, xpca_h)}
+
+    def twice(what: str, fn, result, kernel=None):
+        """``fn()`` twice on the card, timed, its kernel's launches
+        counted; the two ``result(out)`` equal bit for bit."""
+        got = []
+        for rep in range(2):
+            if kernel is not None:
+                kernel.launches = 0
+            o, s, peak = timed_run(fn)
+            row = {"op": what, "rep": rep, "s": s, "peak_gb": peak}
+            if kernel is not None:
+                row["launches"] = kernel.launches
+            runs.append(row)
+            got.append(result(o))
+        check(same_bits(got[0], got[1]), f"{what}: two card runs differ")
+        return got[0]
+
+    # qc.doublet_score at its defaults, twice, the searches recorded: the
+    # PCA's Xᵀ Q adds by atomics on the card (ROADMAP.md Queue 3), so the
+    # runs may part at near-ties of the search, and a score may differ
+    # only on such a row
+    got = []
+    with recorded_search(dev) as found:
+        for rep in range(2):
+            KK.knn_select.launches = 0
+            o, s_, peak = timed_run(lambda: apply("qc.doublet_score", data,
+                                                  device=dev))
+            runs.append({"op": "qc.doublet_score", "rep": rep, "s": s_,
+                         "peak_gb": peak,
+                         "launches": KK.knn_select.launches})
+            got.append(np.concatenate([o.obs["doublet_score"][:n].cpu()
+                                       .numpy(),
+                                       o.uns["doublet_sim_scores"].cpu()
+                                       .numpy()]))
+    check(all(r["launches"] == 1 for r in runs[-2:]),
+          f"qc.doublet_score launched knn_select "
+          f"{[r['launches'] for r in runs[-2:]]} times a run, not once")
+    n_sim, k, k_adj = D._resolve_params(n, 2.0, None)
+    total = n + n_sim
+    lists = [(host_array(i[:total]), host_array(d[:total]))
+             for _, i, d in found]
+    # a neighbour distance moves by at most the two points' drift
+    drift = float(np.linalg.norm(host_array(found[0][0])
+                                 - host_array(found[1][0]), axis=1).max())
+    tie_rows = near_tie_rows(*lists[0], *lists[1], "doublet search, run 2",
+                             atol=2.0 * drift)
+    same = np.setdiff1d(np.arange(total), tie_rows)
+    check(np.array_equal(got[0][same], got[1][same]),
+          "qc.doublet_score: two card runs differ off the near-tie rows")
+    dbl = (got[0][:n], got[0][n:])
+    combined, ids, _ = found[0]
+    check(tuple(ids.shape[1:]) == (k_adj,) and k_adj > KK.K_MAX // 2,
+          f"doublet search width {tuple(ids.shape)}, k_adj {k_adj}")
+    obs_s, sim_s = dbl
+    check(np.isfinite(obs_s).all() and obs_s.min() >= 0
+          and obs_s.max() <= 1, "doublet scores not finite in [0, 1]")
+    dbl_auc = auc(obs_s[is_dbl], obs_s[~is_dbl])
+    check(dbl_auc > DOUBLET_AUC, f"doublet AUC {dbl_auc} <= {DOUBLET_AUC}")
+    check(sim_s.mean() > obs_s[~is_dbl].mean(),
+          "simulated doublets do not score above the singlets")
+    host = host_array(combined)
+    rows = np.sort(np.random.default_rng(0).choice(len(host), N_COMPARE,
+                                                   replace=False))
+    ids_h = host_array(ids[:len(host)])
+    recall = recall_at_k(ids_h[rows], excl_oracle(host, rows, 10), k=10)
+    check(recall >= 0.99, f"doublet search recall@10 {recall} < 0.99")
+    doublet = {"cells": n, "simulated": n_sim, "k": k, "k_adj": k_adj,
+               "auc": dbl_auc, "recall_at_10": recall,
+               "runs_near_tie_rows": int(len(tie_rows)),
+               "runs_embedding_drift": drift,
+               "runs_scores_differing": int((got[0] != got[1]).sum()),
+               "sim_mean": float(sim_s.mean()),
+               "singlet_mean": float(obs_s[~is_dbl].mean()),
+               "injected_mean": float(obs_s[is_dbl].mean())}
+    kernel_in = {"doublet": (combined, k_adj)}
+    del found, combined, ids, lists, got
+    card_cut = doublet_cut(cut_csr, DEVICE)
+    jobs["doublet"] = pool.submit(doublet_cut, cut_csr, "cpu",
+                                  card_cut["pca"])
+
+    # embed.density on the UMAP, ungrouped and grouped
+    lay_data = out.with_obsm(X_umap=lay["umap"])
+    dens = {}
+    for groupby in (None, "cluster_true"):
+        col = "umap_density" + (f"_{groupby}" if groupby else "")
+        dens[col] = twice(f"embed.density groupby={groupby}", lambda: apply(
+            "embed.density", lay_data, device=dev, groupby=groupby),
+            lambda o: o.obs[col][:n]).cpu().numpy()
+        check(np.isfinite(dens[col]).all() and dens[col].min() >= 0
+              and dens[col].max() <= 1, f"{col} not in [0, 1]")
+
+    # de.marker_gene_overlap on the stats phase's t-test ranking
+    tt = stats["ttest"]
+    groups = [str(g) for g in range(KMEANS_K)]
+    ranked = out.with_uns(rank_genes_groups={"names": tt["names"],
+                                             "groups": groups})
+    markers = {f"top{g}": list(map(str, tt["names"][g][:30]))
+               for g in range(1, 4)}
+    markers["shifted"] = list(map(str, tt["names"][5][10:110]))
+    overlap = {}
+    for method in ("overlap_count", "overlap_coef", "jaccard"):
+        res = [apply("de.marker_gene_overlap", ranked, device=d,
+                     reference_markers=markers, method=method)
+               .uns["rank_genes_groups_overlap"]["matrix"]
+               for d in (dev, "cpu")]
+        check(np.array_equal(res[0], res[1]),
+              f"marker_gene_overlap {method}: card and CPU differ")
+        overlap[method] = res[0].tolist()
+    check(overlap["overlap_count"][0][1] == 30.0,
+          "group 1's own top 30 not found in its top 100")
+
+    # palantir.gene_trends on the palantir phase's pseudotime, lineage 0
+    pal_out = pal["out"]
+    tr = twice("palantir.gene_trends", lambda: apply(
+        "palantir.gene_trends", pal_out, device=dev, lineage=0),
+        lambda o: [o.uns["gene_trends"][k] for k in ("trends", "std")])
+    t0 = time.perf_counter()
+    tr_cpu = apply("palantir.gene_trends", pal_out.to_device("cpu"),
+                   device="cpu", lineage=0).uns["gene_trends"]
+    trends, std = (v.cpu().numpy() for v in tr)
+    check(trends.shape == (100, out.n_genes) and np.isfinite(trends).all()
+          and np.isfinite(std).all(), "gene trends not finite")
+    scale = float(np.abs(tr_cpu["trends"].numpy()).max())
+    cmp["gene_trends"] = {
+        "trends": within(f64(trends), f64(tr_cpu["trends"].numpy()),
+                         ANALYSIS_TOL["trends"],
+                         1e-6 * scale),
+        "std": within(f64(std), f64(tr_cpu["std"].numpy()), 0.0,
+                      ANALYSIS_TOL["std"] * scale),
+        "cpu_s": time.perf_counter() - t0}
+
+    # da.neighborhoods on the main graph, both modes
+    cond, samp, planted = da_design(truth, n)
+    da_data = out.with_obs(condition=cond, sample=samp)
+    da = {}
+    for mode, kw in (("binomial", {}), ("replicates",
+                                         {"sample_key": "sample"})):
+        res = twice(f"da.neighborhoods {mode}", lambda: apply(
+            "da.neighborhoods", da_data, device=dev, **kw),
+            lambda o: [o.obs[k][:n] for k in ("da_score", "da_fdr",
+                                              "da_logfc")])
+        cpu = apply("da.neighborhoods", da_data.to_device("cpu"),
+                    device="cpu", **kw)
+        check(all(np.array_equal(a.cpu().numpy(), cpu.obs[k].numpy(),
+                                 equal_nan=True) for a, k in zip(
+            res, ("da_score", "da_fdr", "da_logfc"))),
+              f"da.neighborhoods {mode}: card and CPU differ")
+        score, fdr, lfc = (v.cpu().numpy() for v in res)
+        called = (fdr < 0.1) & (lfc > 0)
+        row = {"planted_called": float(called[planted].mean()),
+               "elsewhere_called": float((fdr < 0.1)[~planted].mean()),
+               "planted_lfc_up": float((lfc[planted] > 0).mean()),
+               "planted_mean_score": float(score[planted].mean())}
+        da[mode] = row
+        check(row["elsewhere_called"] <= DA_ELSEWHERE,
+              f"da {mode}: {row['elsewhere_called']} of the other cells "
+              f"called > {DA_ELSEWHERE}")
+        check(row["planted_lfc_up"] >= 0.9 and row["planted_mean_score"] > 0,
+              f"da {mode}: the planted cluster is not enriched: {row}")
+        if mode == "binomial":
+            check(row["planted_called"] >= DA_RATIO * max(
+                row["elsewhere_called"], 1e-3),
+                  f"da {mode}: planted call rate {row}")
+
+    # wishbone.run on the main graph and X_pca, once: its host work
+    # (waypoints, trajectory) is ≈ 10 s of the run; the min-plus
+    # distances run again below, against dijkstra
+    o, s_, peak = timed_run(lambda: apply(
+        "wishbone.run", out, device=dev, start_cell=0,
+        n_waypoints=WISHBONE_WAYPOINTS))
+    runs.append({"op": "wishbone.run", "rep": 0, "s": s_, "peak_gb": peak})
+    tau, branch = (host_array(o.obs[k][:n]) for k in (
+        "wishbone_trajectory", "wishbone_branch"))
+    waypoints = o.uns["wishbone_waypoints"]
+    check(np.isfinite(tau).all(), "wishbone trajectory not finite")
+    idx2, w2 = W.sym_edges(idx_h, dist_h.astype(np.float64))
+    D_card = W.minplus_distances(torch.from_numpy(idx2).to(dev),
+                                 torch.from_numpy(w2).to(dev), waypoints)
+    mine = truth == truth[0]
+    from scipy.stats import spearmanr
+
+    rho = float(spearmanr(tau[mine], D_card[mine, 0])[0])
+    check(rho > 0.0, f"wishbone: trajectory against the start's distance "
+                     f"in its cluster, Spearman {rho}")
+
+    # embed.phate on a cut, and auto-t on a smaller one against the CPU
+    from sctools_tpu_torch.carry import graph_from_numpy
+
+    def cut_graph(m):
+        d = CellData(torch.zeros((m, 1), device=dev),
+                     obsm={"X_pca": out.obsm["X_pca"][:m]})
+        return apply("neighbors.knn", d, device=dev, k=15,
+                     metric="euclidean")
+
+    KK.knn_select.launches = 0
+    pg = cut_graph(PHATE_CELLS)
+    phate_knn = KK.knn_select.launches
+    ph = twice("embed.phate", lambda: apply(
+        "embed.phate", pg, device=dev, t=PHATE_T),
+        lambda o: o.obsm["X_phate"][:PHATE_CELLS]).cpu().numpy()
+    check(ph.shape == (PHATE_CELLS, 2) and np.isfinite(ph).all(),
+          "X_phate not finite")
+    small = cut_graph(PHATE_AUTO_CELLS)
+    sk = np.random.default_rng(DOUBLET_SEED).standard_normal(
+        (PHATE_AUTO_CELLS, 10)).astype(np.float32)
+    s_idx = small.obsp["knn_indices"][:PHATE_AUTO_CELLS].cpu().numpy()
+    s_dist = small.obsp["knn_distances"][:PHATE_AUTO_CELLS].cpu().numpy()
+    jobs["phate"] = pool.submit(phate_cpu, s_idx, s_dist, sk)
+    sm = twice("embed.phate auto-t", lambda: apply(
+        "embed.phate", graph_from_numpy(CellData(torch.zeros(
+            (PHATE_AUTO_CELLS, 1), device=dev)), s_idx, s_dist), device=dev,
+        sketch=torch.from_numpy(sk)),
+        lambda o: [o.obsm["X_phate"], o.uns["phate_t"]])
+    kernel_in["phate"] = (pg.obsm["X_pca"][:PHATE_CELLS], phate_knn)
+    emit({"phase": "analysis", "card": card, "cells": n, "runs": runs,
+          "doublet": doublet, "da": da, "overlap": overlap,
+          "wishbone_branches": np.bincount(branch).tolist(),
+          "wishbone_start_spearman": rho,
+          "phate": {"cells": PHATE_CELLS, "t": PHATE_T,
+                    "knn_select_launches": phate_knn},
+          "card_vs_cpu": cmp, "phase_s": time.perf_counter() - t_phase})
+    return kernel_in, lambda: analysis_finish(
+        jobs, card_cut, dens, D_card, waypoints, tau, branch, sm, cmp)
+
+
+def analysis_finish(jobs, card_cut, dens, D_card, waypoints, tau, branch,
+                    sm, cmp) -> None:
+    """Phase analysis's compares with the worker's CPU runs (doublet cut,
+    density, wishbone, PHATE's auto-t cut), read after phase velocity so
+    that the worker's ≈ 100 s run beside the card's next phases."""
+    t0 = time.perf_counter()
+    hc = jobs["doublet"].result()
+    scale = float(np.abs(hc["sim"]).max())
+    sim_err = within(f64(card_cut["sim"]), f64(hc["sim"]), 0.0,
+                     ANALYSIS_TOL["projection"] * scale)
+    drift = float(np.linalg.norm(card_cut["sim"] - hc["sim"], axis=1).max())
+    diff = near_tie_rows(card_cut["idx"], card_cut["dist"], hc["idx"],
+                         hc["dist"], "doublet cut search", atol=2.0 * drift)
+    same = np.setdiff1d(np.arange(len(hc["idx"])), diff)
+    a_s, b_s = card_cut["scores"], hc["scores"]
+    # a near-tie flip moves the counts of its own row only
+    check(np.array_equal(a_s[same], b_s[same]),
+          "doublet cut: scores differ off the near-tie rows")
+    cmp["doublet_cut"] = {"cells": DOUBLET_CUT, "projection_err": sim_err,
+                          "projection_scale": scale, "drift": drift,
+                          "near_tie_rows": int(len(diff)),
+                          "scores_differing": int((a_s != b_s).sum()),
+                          "cpu_s": hc["s"], "card_s": card_cut["s"]}
+    hd = jobs["density"].result()
+    for col, v in dens.items():
+        err = float(np.abs(v.astype(np.float64) - hd[col]).max())
+        check(err <= ANALYSIS_TOL["density"],
+              f"{col}: card against CPU {err} > {ANALYSIS_TOL['density']}")
+        cmp[col] = err
+    cmp["density_cpu_s"] = hd["s"]
+    hw = jobs["wishbone"].result()
+    fin = np.isfinite(hw["D"])
+    d_err = float((np.abs(D_card[fin] - hw["D"][fin])
+                   / np.maximum(hw["D"][fin], 1e-30)).max())
+    check(np.array_equal(waypoints, hw["waypoints"]),
+          "wishbone: card and CPU waypoints differ")
+    check(d_err <= ANALYSIS_TOL["dijkstra"] and bool(
+        (D_card[~fin] > 1e37).all()),
+          f"wishbone: min-plus distances {d_err} from dijkstra's")
+    t_err = float(np.abs(tau - hw["tau"]).max() / np.ptp(hw["tau"]))
+    b_same = float((branch == hw["branch"]).mean())
+    check(t_err <= ANALYSIS_TOL["trajectory"],
+          f"wishbone: trajectory {t_err} of its range from the CPU's")
+    check(b_same >= ANALYSIS_TOL["branch"],
+          f"wishbone: branches equal on {b_same} of the cells")
+    cmp["wishbone"] = {"dijkstra_rel_err": d_err, "trajectory_err": t_err,
+                       "branch_equal": b_same,
+                       "unreachable": float((~fin).mean()),
+                       "cpu_s": hw["s"]}
+    hp = jobs["phate"].result()
+    emb_card, t_card = sm
+    sp_rho = pair_spearman(emb_card.cpu().numpy(), hp["emb"])
+    check(t_card == hp["t"], f"phate auto t: card {t_card}, CPU {hp['t']}")
+    check(sp_rho > ANALYSIS_TOL["phate"],
+          f"phate: pairwise-distance Spearman {sp_rho} against the CPU")
+    cmp["phate"] = {"cells": PHATE_AUTO_CELLS, "t": int(t_card),
+                    "spearman": sp_rho, "cpu_s": hp["s"]}
+    emit({"phase": "analysis_cpu_compare", "card_vs_cpu": cmp,
+          "wait_s": time.perf_counter() - t0})
+
+
+def analysis_kernel_rows(ana: dict, card: str, peaks: dict) -> list:
+    """knn_select at the analysis phase's searches: the doublet search
+    (the observed and simulated cells' 205,737 × 30 embedding against
+    itself, euclidean, self excluded, k = k_adj = 393: the lists wait in
+    device memory) and PHATE's cut (16,384 × 50, euclidean, k = 15),
+    each with its launches a run.  Yardstick: ``torch.cdist`` +
+    ``torch.topk`` (k + 1 with self excluded)."""
+    combined, k_adj = ana["doublet"]
+    x, phate_launches = ana["phate"]
+    rows = []
+    for what, q, k, excl, launches, reps in (
+            ("qc.doublet_score: observed + simulated, self excluded",
+             combined, k_adj, True, 1, 1),
+            ("embed.phate's cut: neighbors.knn", x, 15, False,
+             phate_launches, 3)):
+        host = q.cpu().numpy()
+        orc = excl_oracle(host, np.arange(N_COMPARE), 10) if excl else \
+            excl_oracle(host, np.arange(N_COMPARE), 9)
+        if not excl:  # the search keeps each row itself first
+            orc = np.concatenate([np.arange(N_COMPARE)[:, None], orc], 1)
+        scale = 4.0 * float((q * q).sum(1).max())
+        row = kernel_case(
+            f"{q.shape[0]}x{q.shape[0]}x{q.shape[1]} k={k} float32 "
+            f"euclidean ({what})", q, q, k, "euclidean", orc, launches,
+            card, peaks, all_bins=False, plain_reps=reps,
+            library=lambda a, b, kk, e=excl: library_cdist_topk(
+                a, b, kk + int(e)), tol=1e-5 * max(1.0, scale),
+            exclude_self=excl)
+        row["library_call"] = "torch.cdist + torch.topk"
+        rows.append(row)
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -3998,7 +4647,8 @@ def edges_phase() -> None:
         (2000, 2000, 8, 12, "euclidean", torch.float32, True, True),
         (2000, 2000, 8, 12, "cosine", torch.float32, False, True),
     ] + split_edge_cases(layout["query_tile"], layout["cand_tile"],
-                         layout["splits"])
+                         layout["splits"]) + memory_list_cases(
+        layout["query_tile"], layout["cand_tile"], layout["splits"])
     results = []
     for nq, nc, d, k, metric, dtype, excl, integer in cases:
         if integer:
@@ -4019,10 +4669,66 @@ def edges_phase() -> None:
         if integer:
             check(stats["idx_agree"] == 1.0,
                   "exact ties must give identical ids")
+        if k > MEMORY_K:
+            stats.update(memory_list_bits(
+                got, want, integer == "exact",
+                lambda kk: knn_select(q, c, k=kk, metric=metric,
+                                      exclude_self=excl)))
         results.append({"nq": nq, "nc": nc, "d": d, "k": k,
                         "metric": metric, "dtype": str(dtype)[6:],
                         "exclude_self": excl, **stats})
     emit({"phase": "edges", "layout": layout, "cases": results})
+
+
+MEMORY_K = 256  # most entries a kNN kernel's list keeps in registers
+
+
+def memory_list_cases(qb: int, cb: int, splits: int, n_bins=None) -> list:
+    """``edges_phase`` (and, with ``n_bins``, ``binned_edges_phase``)
+    cases above MEMORY_K, where the lists wait in device memory: k = 300
+    and 393 (``qc.doublet_score``'s k_adj at 68,579 cells) and 512 (the
+    kernels' K_MAX), both metrics, self exclusion, bf16, fewer candidates
+    than k, row counts one off the query tile and the split boundaries;
+    the tie cases take "exact" points (every score exact, so the kernel
+    must give the plain version's bits)."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # (nq, nc, d, k, metric, dtype, exclude_self, integer points)
+        (1000, 3000, 50, 300, "cosine", f32, False, False),
+        (qb + 1, splits * cb * 4 + 1, 30, 393, "euclidean", f32, True,
+         False),
+        (2 * qb - 1, 2000, 50, 393, "cosine", bf16, True, False),
+        (130, 300, 50, 393, "cosine", f32, False, False),
+        (2000, 2000, 8, 393, "euclidean", f32, True, "exact"),
+        (2000, 2000, 8, 300, "cosine", f32, False, "exact"),
+        (qb - 1, 2 * splits * cb + 1, 8, 512, "euclidean", f32, True,
+         "exact"),
+    ]
+    if n_bins is None:
+        return cases
+    return [case[:4] + (nb,) + case[4:] for case, nb in zip(cases, n_bins)]
+
+
+def memory_list_bits(got, want, exact: bool, search) -> dict:
+    """The checks of a case above MEMORY_K: with exact scores the
+    kernel's values and ids equal the plain version's bit for bit; in
+    every case its first MEMORY_K entries equal, bit for bit, the same
+    kernel's search at k = MEMORY_K (lists in registers): the first
+    entries of a top k under one order are the top MEMORY_K."""
+    import torch
+
+    if exact:
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              "exact scores: the kernel's bits differ from the plain "
+              "version's")
+    reg = search(MEMORY_K)
+    sync()
+    check(all(torch.equal(a[:, :MEMORY_K], b) for a, b in zip(got, reg)),
+          f"the first {MEMORY_K} entries differ from the search at "
+          f"k = {MEMORY_K}")
+    return {"bitwise_plain": bool(exact), "prefix_of_k256": True}
 
 
 def binned_split_cases(qb: int, cb: int, splits: int) -> list:
@@ -4096,7 +4802,9 @@ def binned_edges_phase() -> None:
         (2000, 2000, 8, 12, 128, "euclidean", torch.float32, True, True),
         (2000, 2000, 8, 12, 256, "cosine", torch.float32, False, True),
     ] + binned_split_cases(layout["query_tile"], layout["cand_tile"],
-                           layout["splits"])
+                           layout["splits"]) + memory_list_cases(
+        layout["query_tile"], layout["cand_tile"], layout["splits"],
+        n_bins=(1024, 512, 1024, 512, 1024, 2048, 512))
     results = []
     for nq, nc, d, k, n_bins, metric, dtype, excl, integer in cases:
         if integer:
@@ -4122,6 +4830,11 @@ def binned_edges_phase() -> None:
             check(all(torch.equal(a, b) for a, b in zip(got, exact)),
                   f"n_cand {nc} <= n_bins {surv[1]}: binned differs from "
                   "the exact kernel")
+        if k > MEMORY_K:
+            stats.update(memory_list_bits(
+                got, want, integer == "exact",
+                lambda kk: knn_binned(q, c, k=kk, n_bins=n_bins,
+                                      metric=metric, exclude_self=excl)))
         results.append({"nq": nq, "nc": nc, "d": d, "k": k,
                         "n_bins": surv[1], "metric": metric,
                         "dtype": str(dtype)[6:], "exclude_self": excl,
@@ -4148,7 +4861,8 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
                 ids_for_recall=None, n_bins: int | None = None,
                 plain_reps: int = 3, library_reps: int = 5,
                 all_bins: bool = True, library=None,
-                tol: float | None = None) -> dict:
+                tol: float | None = None, exclude_self: bool = False
+                ) -> dict:
     """Kernel against plain version on the first N_COMPARE queries,
     recall@10 of those queries against the float64 ``oracle`` ids, and
     the times: the exact kernel, or the binned one with ``n_bins`` (its
@@ -4157,7 +4871,8 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
     timed over 3 calls (seconds each at the wide shape).  ``all_bins``
     adds ``binned_all_bins`` to an exact row.  ``library`` is the
     yardstick (default ``library_topk``, the inner-product one), ``tol``
-    the value tolerance (default 1e-5, 1e-3 for bf16)."""
+    the value tolerance (default 1e-5, 1e-3 for bf16); ``exclude_self``
+    (q is c) masks the self pair in the kernel and the plain version."""
     import torch
 
     from sctools_tpu_torch.config import true_f32
@@ -4166,10 +4881,11 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
 
     if n_bins is None:
         name, line, gate = "knn_select", 84, 0.99
-        kernel = lambda: KK.knn_select(q, c, k=k, metric=metric)  # noqa
+        kernel = lambda: KK.knn_select(  # noqa: E731
+            q, c, k=k, metric=metric, exclude_self=exclude_self)
         plain = lambda qq: KK.knn_select_plain(  # noqa: E731
-            qq, c, k=k, metric=metric, query_block=PLAIN_BLOCK,
-            cand_block=PLAIN_BLOCK)
+            qq, c, k=k, metric=metric, exclude_self=exclude_self,
+            query_block=PLAIN_BLOCK, cand_block=PLAIN_BLOCK)
     else:
         name, line, gate = "knn_binned", 113, 0.98
         kernel = lambda: KK.knn_binned(  # noqa: E731
@@ -4720,8 +5436,10 @@ def run() -> int:
     stats = stats_phase(main_out, card)
     integ = integrate_phase(main_out, card)
     lay = layouts_phase(graph, card)
+    ana, analysis_finish_ = analysis_phase(main_out, pal, stats, lay, card)
     vel = velocity_phase(card)
     recipes_finish()  # the recipes' CPU runs, on the worker meanwhile
+    analysis_finish_()  # and phase analysis's
     x_pca, launches = main_out["x_pca"], main_out["launches"]
     del main_out
     stream = stream_phase(card)
@@ -4744,6 +5462,7 @@ def run() -> int:
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)
     kernels += velocity_kernel_rows(lay, vel, card, peaks)
     kernels += integrate_kernel_rows(integ, card, peaks)
+    kernels += analysis_kernel_rows(ana, card, peaks)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,10 @@ over the reference's arrays through numpy:
   ``v0=`` of ``embed.spectral``;
 * ``logreg_w0_from_numpy`` turns the reference's start of the
   ``de.rank_genes_groups(method="logreg")`` coefficients (``jax.random``
-  again) into what ``ops.de.logreg_w0`` returns.
+  again) into what ``ops.de.logreg_w0`` returns;
+* ``phate_sketch_from_numpy`` turns the reference's start block of
+  ``embed.phate``'s subspace iteration (``jax.random.normal`` again)
+  into the ``sketch=`` of ``embed.phate``.
 """
 
 from __future__ import annotations
@@ -89,6 +92,16 @@ def logreg_w0_from_numpy(w0) -> torch.Tensor:
     if w0.ndim != 2:
         raise ValueError(f"w0 must be (n_genes, n_groups), got {w0.shape}")
     return torch.from_numpy(w0)
+
+
+def phate_sketch_from_numpy(sketch) -> torch.Tensor:
+    """The reference's (n, n_components + 8) Gaussian start block of
+    ``embed.phate`` as the float32 tensor that ``embed.phate(...,
+    sketch=)`` takes."""
+    sketch = np.array(sketch, dtype=np.float32)
+    if sketch.ndim != 2:
+        raise ValueError(f"sketch must be (n, width), got {sketch.shape}")
+    return torch.from_numpy(sketch)
 
 
 def graph_from_numpy(data: CellData, knn_indices, knn_distances,

@@ -62,6 +62,10 @@
 //     cells shifted into best[0] by register moves, so that its code
 //     stays small: unrolled, it was fetched anew at every chunk end and
 //     cost more than its merges (PERF.md).
+//   * Since the lists already wait in device memory between chunks, the
+//     K = 512 build (256 < k <= 512) keeps them as the others do: a round
+//     trip holds a pair's two lists in registers (16 slots a lane each)
+//     only inside pair_trip.
 //   * Splits go over bin chunks, not candidate ranges: S = min(SPLITS,
 //     chunks) blocks a query tile, each over a contiguous range of
 //     chunks, so one block holds each bin whole (a bin split over two
@@ -241,7 +245,7 @@ __device__ __noinline__ void pair_trip(Cells<true> cl, Sink s, int A,
   float* vb = s.lv + (int64_t)qb * k;
   int* ia = s.li + (int64_t)qa * k;
   int* ib = s.li + (int64_t)qb * k;
-  Pair<SL> p;
+  Pair<List<SL>> p;
   p.a = load_list<SL>(va, ia, k, lane, fa < STORED || qa >= s.nq);
   p.b = load_list<SL>(vb, ib, k, lane, fb < STORED || qb >= s.nq);
   p.na = fa % STORED, p.nb = fb % STORED;
@@ -511,7 +515,10 @@ int sct_knn_binned(const void* q, const void* c, int nq, int nc, int d,
   if (k <= 128)
     return (int)launch<128>(qP, cP, nq, nc, d, k, n_bins, euclid,
                             exclude_self, ov, oi, sc, s);
-  return (int)launch<256>(qP, cP, nq, nc, d, k, n_bins, euclid, exclude_self,
+  if (k <= 256)
+    return (int)launch<256>(qP, cP, nq, nc, d, k, n_bins, euclid,
+                            exclude_self, ov, oi, sc, s);
+  return (int)launch<512>(qP, cP, nq, nc, d, k, n_bins, euclid, exclude_self,
                           ov, oi, sc, s);
 }
 

@@ -23,7 +23,10 @@
 //   from 0.f, whatever the staging.
 // * The lists.  A query's top-k list is spread over its warp (entry j in
 //   lane j % 32, slot j / 32) in the order (value descending, key
-//   ascending), with entry k - 1 as its threshold.  Cells that may enter
+//   ascending), with entry k - 1 as its threshold.  Up to K_REG entries
+//   the list lives in the warp's registers (List); above it, in device
+//   memory at the row's k output slots, with only its threshold in
+//   registers (MemList), and a merge loads it, merges and stores it.  Cells that may enter
 //   go, out of line, to the row's 32-entry buffer in shared memory
 //   (take_cells: positions by ballot and popc), and a full buffer is
 //   merged into the list by a bitonic sort and merge-split (merge_row).
@@ -85,7 +88,11 @@ constexpr int CAP = 32;             // entries a row buffer holds
 constexpr int RING_MAX = KNN_RING;  // candidate stages in flight at most
 constexpr int BAR_BYTES = 128;      // the mbarriers, before the tiles
 constexpr int D_MAX = 256;
-constexpr int K_MAX = 256;
+constexpr int K_MAX = 512;
+// Most entries a list keeps in registers: RW lists of K_REG / 32 (value,
+// id) pairs a lane.  Above it a list lives in device memory (MemList):
+// RW lists of 512 would need 256 registers a lane.
+constexpr int K_REG = 256;
 constexpr int SMEM_MAX = 232448;     // dynamic shared memory of a block
 constexpr int MERGE_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
@@ -266,14 +273,22 @@ struct List {
   int ti;
 };
 
+// A top-k list of more than K_REG entries: its k entries in device
+// memory (entry j at v[j], id[j], in List's order, written and read only
+// by lane j % 32), its threshold (entry k - 1) in registers.
+struct MemList {
+  float* v;
+  int* id;
+  float tv;
+  int ti;
+};
+
 // Merge into a list the cnt entries of a row's buffer (shared memory,
 // written by the warp) and keep the first k.  The buffer is sorted by a
 // bitonic network, then each slot in turn keeps the first 32 of itself
-// and the carry and passes the rest on.  Out of line: one copy of the
-// network serves every row (inlined at each call, the kernel's code
-// outgrew the instruction cache; PERF.md).
+// and the carry and passes the rest on.
 template <int SL>
-__device__ __noinline__ List<SL> merge_row(List<SL> l, const float* bv,
+__device__ __forceinline__ void merge_list(List<SL>& l, const float* bv,
                                            const int* bi, int cnt, int k,
                                            int lane) {
   __syncwarp();  // the buffer's writes are visible
@@ -305,6 +320,41 @@ __device__ __noinline__ List<SL> merge_row(List<SL> l, const float* bv,
   }
   l.tv = __shfl_sync(FULL, last, (k - 1) % 32);
   l.ti = __shfl_sync(FULL, last_i, (k - 1) % 32);
+}
+
+// merge_list out of line: one copy of the network serves every row
+// (inlined at each call, the kernel's code outgrew the instruction cache;
+// PERF.md).
+template <int SL>
+__device__ __noinline__ List<SL> merge_row(List<SL> l, const float* bv,
+                                           const int* bi, int cnt, int k,
+                                           int lane) {
+  merge_list<SL>(l, bv, bi, cnt, k, lane);
+  return l;
+}
+
+// The same merge for a list in device memory: its k entries are loaded
+// into a List of SL slots (entries past k empty), merged and stored back.
+// The registers of the SL slots are live only in here.
+template <int SL>
+__device__ __noinline__ MemList merge_row(MemList l, const float* bv,
+                                          const int* bi, int cnt, int k,
+                                          int lane) {
+  List<SL> r;
+#pragma unroll
+  for (int w = 0; w < SL; ++w) {
+    const int jj = w * 32 + lane;
+    r.v[w] = jj < k ? l.v[jj] : -CUDART_INF_F;
+    r.id[w] = jj < k ? l.id[jj] : NO_ID;
+  }
+  merge_list<SL>(r, bv, bi, cnt, k, lane);
+#pragma unroll
+  for (int w = 0; w < SL; ++w) {
+    const int jj = w * 32 + lane;
+    if (jj < k) l.v[jj] = r.v[w], l.id[jj] = r.id[w];
+  }
+  l.tv = r.tv;
+  l.ti = r.ti;
   return l;
 }
 
@@ -329,10 +379,10 @@ __device__ __forceinline__ int cell_key(const Cells<KEYED>& c, int col0,
     return col0 + 64 * (e / 4) + e % 4;
 }
 
-// A row pair's lists and buffer counts.
-template <int SL>
+// A row pair's lists (List<SL> or MemList) and buffer counts.
+template <class L>
 struct Pair {
-  List<SL> a, b;
+  L a, b;
   int na, nb;
 };
 
@@ -386,9 +436,10 @@ __device__ __forceinline__ void append_cells(const Cells<KEYED>& c, int col0,
 // Append a row pair's cells that may enter to the rows' buffers: all at
 // once when they fit, else two cells a lane at a time (at most 32 a row),
 // merging a buffer first when they would not fit.  Out of line, like
-// merge_row, and called only for a pair with such a cell.
-template <int SL, bool KEYED>
-__device__ __noinline__ Pair<SL> take_cells(Pair<SL> p, Cells<KEYED> c,
+// merge_row, and called only for a pair with such a cell.  L is List<SL>
+// or MemList (SL slots in the merges).
+template <int SL, bool KEYED, class L>
+__device__ __noinline__ Pair<L> take_cells(Pair<L> p, Cells<KEYED> c,
                                             int col0, float* bva, int* bia,
                                             float* bvb, int* bib, int k,
                                             int lane) {

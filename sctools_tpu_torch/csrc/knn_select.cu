@@ -62,6 +62,15 @@
 //     about 550 cycles a warp an insertion, in a latency chain.  And the
 //     appends and merges stay out of the tile loop: inlined in each row's
 //     code, they made the loop outgrow the instruction cache; PERF.md.)
+//   * Above K_REG (256) entries the lists leave the registers: RW lists
+//     of 512 would take 256 registers a lane.  A row's list then waits in
+//     its k slots of the split's output (MemList), in the same order, and
+//     only its threshold stays in registers; a merge loads it, merges and
+//     stores it (merge_row<SL>(MemList)), so its registers are live only
+//     there.  A merge then moves 8 k bytes each way through the caches;
+//     rows past nq get a threshold nothing passes, so they never merge
+//     and write nothing.  The tile loop, the filter and the merges are the
+//     register lists', so the order and the result are the same.
 //   * Splits.  Each (query tile, split) block writes its k best to a
 //     scratch buffer (SPLITS, nq, k); knn_merge_kernel merges the SPLITS
 //     sorted lists of each query.  The splits cover ascending id ranges,
@@ -89,6 +98,7 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
                       int kc, int nring, int k, int exclude_self,
                       float* __restrict__ out_v, int* __restrict__ out_i) {
   constexpr int SL = (K + 31) / 32;  // list slots a lane
+  constexpr bool IN_MEMORY = K > K_REG;  // the lists wait in device memory
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem m = carve(smem, d, kc, nring);
   const bool euclid = qn != nullptr;
@@ -121,16 +131,34 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   int* wbi = m.buf_i + warp * RW * CAP;
 
   // The warp's RW lists and, per row, entry k - 1 (only a candidate
-  // before it can enter) and the entries in its buffer.
-  List<SL> L[RW];
+  // before it can enter) and the entries in its buffer.  In memory, list
+  // q is at this split's slots of row q0 + warp * RW + q (mem(q)), and L
+  // holds only the thresholds.
+  const int64_t slice = (int64_t)blockIdx.y * nq * k;
+  auto mem = [&](int q, const List<1>& t) {
+    const int64_t at = slice + (int64_t)(q0 + warp * RW + q) * k;
+    return MemList{out_v + at, out_i + at, t.tv, t.ti};
+  };
+  List<IN_MEMORY ? 1 : SL> L[RW];
   int cnt[RW];
 #pragma unroll
   for (int q = 0; q < RW; ++q) {
     L[q].tv = -CUDART_INF_F;
     L[q].ti = NO_ID;
     cnt[q] = 0;
+    if constexpr (IN_MEMORY) {
+      if (q0 + warp * RW + q < nq) {
+        const MemList l = mem(q, L[q]);
+        for (int jj = lane; jj < k; jj += 32)
+          l.v[jj] = -CUDART_INF_F, l.id[jj] = NO_ID;
+      } else {
+        L[q].tv = CUDART_INF_F, L[q].ti = -1;  // nothing passes
+      }
+    } else {
 #pragma unroll
-    for (int w = 0; w < SL; ++w) L[q].v[w] = -CUDART_INF_F, L[q].id[w] = NO_ID;
+      for (int w = 0; w < SL; ++w)
+        L[q].v[w] = -CUDART_INF_F, L[q].id[w] = NO_ID;
+    }
   }
 
   float acc[TM][TN];
@@ -183,31 +211,51 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
 #pragma unroll
         for (int e = 0; e < TN; ++e) cl.v[e] = o[e];
         __syncwarp();
-        const Pair<SL> pr = take_cells<SL, false>(
-            Pair<SL>{L[A], L[B], cnt[A], cnt[B]}, cl, c0 + c0l, wbv + A * CAP,
-            wbi + A * CAP, wbv + B * CAP, wbi + B * CAP, k, lane);
-        L[A] = pr.a, L[B] = pr.b, cnt[A] = pr.na, cnt[B] = pr.nb;
+        if constexpr (IN_MEMORY) {
+          const Pair<MemList> pr = take_cells<SL, false>(
+              Pair<MemList>{mem(A, L[A]), mem(B, L[B]), cnt[A], cnt[B]}, cl,
+              c0 + c0l, wbv + A * CAP, wbi + A * CAP, wbv + B * CAP,
+              wbi + B * CAP, k, lane);
+          L[A].tv = pr.a.tv, L[A].ti = pr.a.ti;
+          L[B].tv = pr.b.tv, L[B].ti = pr.b.ti;
+          cnt[A] = pr.na, cnt[B] = pr.nb;
+        } else {
+          const Pair<List<SL>> pr = take_cells<SL, false>(
+              Pair<List<SL>>{L[A], L[B], cnt[A], cnt[B]}, cl, c0 + c0l,
+              wbv + A * CAP, wbi + A * CAP, wbv + B * CAP, wbi + B * CAP, k,
+              lane);
+          L[A] = pr.a, L[B] = pr.b, cnt[A] = pr.na, cnt[B] = pr.nb;
+        }
       }
     j = 0;
     ++t;
   }
 
   // the buffers' last entries, then this split's slice of the output
-  const int64_t slice = (int64_t)blockIdx.y * nq * k;
 #pragma unroll
   for (int q = 0; q < RW; ++q) {
-    if (cnt[q] > 0)
-      L[q] = merge_row<SL>(L[q], wbv + q * CAP, wbi + q * CAP, cnt[q], k,
-                           lane);
     const int qrow = q0 + warp * RW + q;
-    if (qrow >= nq) continue;
+    if constexpr (IN_MEMORY) {
+      if (qrow >= nq) continue;
+      const MemList l =
+          cnt[q] > 0 ? merge_row<SL>(mem(q, L[q]), wbv + q * CAP,
+                                     wbi + q * CAP, cnt[q], k, lane)
+                     : mem(q, L[q]);
+      for (int jj = lane; jj < k; jj += 32)
+        if (!isfinite(l.v[jj])) l.id[jj] = -1;
+    } else {
+      if (cnt[q] > 0)
+        L[q] = merge_row<SL>(L[q], wbv + q * CAP, wbi + q * CAP, cnt[q], k,
+                             lane);
+      if (qrow >= nq) continue;
 #pragma unroll
-    for (int w = 0; w < SL; ++w) {
-      const int jj = w * 32 + lane;
-      if (jj < k) {
-        out_v[slice + (int64_t)qrow * k + jj] = L[q].v[w];
-        out_i[slice + (int64_t)qrow * k + jj] =
-            isfinite(L[q].v[w]) ? L[q].id[w] : -1;
+      for (int w = 0; w < SL; ++w) {
+        const int jj = w * 32 + lane;
+        if (jj < k) {
+          out_v[slice + (int64_t)qrow * k + jj] = L[q].v[w];
+          out_i[slice + (int64_t)qrow * k + jj] =
+              isfinite(L[q].v[w]) ? L[q].id[w] : -1;
+        }
       }
     }
   }
@@ -282,7 +330,10 @@ int sct_knn_select(const void* q, const void* c, int nq, int nc, int d,
   if (k <= 128)
     return (int)launch<128>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov,
                             oi, sc, s);
-  return (int)launch<256>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov, oi,
+  if (k <= 256)
+    return (int)launch<256>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov,
+                            oi, sc, s);
+  return (int)launch<512>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov, oi,
                           sc, s);
 }
 

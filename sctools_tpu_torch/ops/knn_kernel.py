@@ -25,10 +25,11 @@ import torch
 from .. import cuda_build
 from ..config import config, round_up, true_f32
 
-# Limits of the kernel (csrc/knn_select.cu K_MAX, D_MAX); the wrapper
+# Limits of the kernels (csrc/knn_core.cuh K_MAX, D_MAX); the wrapper
 # raises past them on every device so both versions take the same
-# inputs.
-K_MAX = 256
+# inputs.  Lists of more than 256 entries wait in device memory between
+# merges (knn_core.cuh MemList).
+K_MAX = 512
 D_MAX = 256
 
 

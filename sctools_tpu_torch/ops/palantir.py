@@ -22,8 +22,11 @@ the (n, k) kNN edge list:
   ``max|ΔB| ≤ tol``, read on the host after every step; their entropy
   is the differentiation potential.
 
-``palantir.gene_trends`` is not ported yet (ROADMAP.md Queue 1 item
-11).
+``palantir.gene_trends``: each gene's expression along the pseudotime by
+Nadaraya–Watson regression on a grid (the reference's documented
+divergence from Palantir's per-gene GAM fits): one Gaussian matrix K
+(n_grid × n) weighted by a lineage's fate probabilities, then ``K @ X``
+and ``K @ X²`` as true-float32 matrix products for every gene at once.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, true_f32
 from ..data.dataset import CellData
+from ..data.sparse import SparseCells
 from ..registry import register
 from . import graph_kernels
 from .graph import _band, knn_matvec, knn_rmatvec, spectral
@@ -325,3 +329,74 @@ def run(data: CellData, root: int = 0, terminal_states=None,
     ).with_obsm(palantir_fate_probs=Bn).with_uns(
         palantir_terminal_states=terminal_states,
         palantir_fate_labels=terminal_states.copy())
+
+
+# ----------------------------------------------------------------------
+# palantir.gene_trends
+# ----------------------------------------------------------------------
+
+
+def gene_trends_arrays(pseudotime: torch.Tensor, weights: torch.Tensor,
+                       X: torch.Tensor, n_grid: int = 100,
+                       bandwidth: float | None = None):
+    """Kernel regression of expression against pseudotime: ``pseudotime``
+    (n,) in [0, 1], ``weights`` (n,) cell weights (a lineage's fate
+    probabilities, or ones), ``X`` (n, g).  Returns (grid (n_grid,),
+    trends (n_grid, g), std (n_grid, g)), float32 on X's device; the
+    bandwidth defaults to 0.75·(range of the pseudotime)/n_grid^0.4."""
+    pt = pseudotime.float()
+    w = weights.float()
+    X = X.float()
+    grid = torch.linspace(0.0, 1.0, n_grid, device=X.device)
+    if bandwidth is None:
+        bandwidth = 0.75 * (pt.max() - pt.min() + 1e-12) / (n_grid ** 0.4)
+    K = torch.exp(-0.5 * ((grid[:, None] - pt[None, :]) / bandwidth) ** 2)
+    K = K * w[None, :]
+    norm = torch.clamp(K.sum(dim=1, keepdim=True), min=1e-12)
+    with true_f32():
+        trends = (K @ X) / norm
+        second = (K @ (X * X)) / norm
+    std = torch.sqrt(torch.clamp(second - trends ** 2, min=0.0))
+    return grid, trends, std
+
+
+@register("palantir.gene_trends")
+def gene_trends(data: CellData, genes=None, lineage: int | None = None,
+                n_grid: int = 100, bandwidth: float | None = None,
+                use_rep: str = "X", device=None) -> CellData:
+    """Expression trends along Palantir pseudotime, weighted by one
+    lineage's fate probabilities when ``lineage`` is given.  Adds uns
+    ``gene_trends`` = {"grid", "trends", "std", "gene_idx",
+    "lineage"}.  ``genes`` (ids or names in var ``gene_name``) picks
+    the genes; a sparse X is densified for those genes only."""
+    from .hvg import subset_genes_sparse
+    from .score import _resolve_gene_indices
+
+    if "palantir_pseudotime" not in data.obs:
+        raise ValueError("run palantir.run first")
+    dev = resolve_device(device)
+    data = data.to_device(dev)
+    n = data.n_cells
+    pt = data.obs["palantir_pseudotime"][:n]
+    if lineage is not None:
+        w = data.obsm["palantir_fate_probs"][:n, lineage]
+    else:
+        w = torch.ones((n,), dtype=torch.float32, device=dev)
+    X = data.X if use_rep == "X" else data.obsm[use_rep]
+    if genes is None:
+        gene_idx = np.arange(X.n_genes if isinstance(X, SparseCells)
+                             else X.shape[1])
+    else:
+        gene_idx = _resolve_gene_indices(data, genes)
+        if isinstance(X, SparseCells) and len(np.unique(gene_idx)) == len(
+                gene_idx):
+            X = subset_genes_sparse(X, gene_idx)
+        else:
+            X = (X.to_dense() if isinstance(X, SparseCells) else X)[
+                :, torch.from_numpy(gene_idx).to(dev)]
+    Xd = (X.to_dense() if isinstance(X, SparseCells) else X)[:n]
+    grid, trends, std = gene_trends_arrays(pt, w, Xd, n_grid=n_grid,
+                                           bandwidth=bandwidth)
+    return data.with_uns(gene_trends={
+        "grid": grid, "trends": trends, "std": std,
+        "gene_idx": np.asarray(gene_idx), "lineage": lineage})

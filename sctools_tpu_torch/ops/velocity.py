@@ -321,13 +321,14 @@ def embedding(data: CellData, basis: str = "umap", scale: float = 0.1,
 # ----------------------------------------------------------------------
 
 
-def _sym_pairs(idx: np.ndarray):
+def _sym_pairs(idx: np.ndarray, weights: np.ndarray | None = None):
     """The undirected edge list of ``sctools_tpu/ops/wishbone.py:
     _sym_edges`` (the port's copy, host numpy), flat instead of padded
-    to the largest row, and without the weights the fate chain does not
-    read: every directed kNN edge and its reverse, each pair once,
-    sorted by source, then target.  Returns (sources, targets, edges a
-    source)."""
+    to the largest row: every directed kNN edge and its reverse, each
+    pair once, sorted by source, then target.  Returns (sources,
+    targets, edges a source), and with ``weights`` (n, k) each pair's
+    weight as a fourth item: its first occurrence's, the forward edge's
+    where there is one (the stable sort keeps the input order)."""
     n, k = idx.shape
     rows = np.repeat(np.arange(n), k)
     cols = idx.reshape(-1)
@@ -340,7 +341,10 @@ def _sym_pairs(idx: np.ndarray):
     first = np.ones(len(a), bool)
     first[1:] = (a[1:] != a[:-1]) | (b[1:] != b[:-1])
     a, b = a[first], b[first]
-    return a, b, np.bincount(a, minlength=n)
+    if weights is None:
+        return a, b, np.bincount(a, minlength=n)
+    w = np.tile(np.asarray(weights).reshape(-1)[keep], 2)[order][first]
+    return a, b, np.bincount(a, minlength=n), w
 
 
 class _Chain:

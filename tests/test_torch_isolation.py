@@ -272,10 +272,12 @@ def test_registry_is_separate_from_the_reference():
     assert sctt.names() == [
         "cluster.dendrogram", "cluster.kmeans", "cluster.leiden",
         "cluster.leiden_like", "cluster.louvain", "cluster.phenograph",
-        "de.filter_rank_genes_groups", "de.rank_genes_groups",
-        "distance.pairwise", "dpt.pseudotime", "embed.diffmap",
-        "embed.draw_graph", "embed.force_directed", "embed.spectral",
-        "embed.tsne", "embed.umap", "graph.connectivities",
+        "da.neighborhoods", "de.filter_rank_genes_groups",
+        "de.marker_gene_overlap", "de.rank_genes_groups",
+        "distance.pairwise", "dpt.pseudotime", "embed.density",
+        "embed.diffmap", "embed.draw_graph", "embed.force_directed",
+        "embed.phate", "embed.spectral", "embed.tsne", "embed.umap",
+        "graph.connectivities",
         "graph.diffusion_operator", "graph.jaccard", "graph.paga",
         "graph.reorder", "graph.restore_order", "hvg.select",
         "impute.magic", "integrate.combat", "integrate.harmony",
@@ -285,8 +287,9 @@ def test_registry_is_separate_from_the_reference():
         "neighbors.knn", "neighbors.knn_multichip", "normalize.clr",
         "normalize.downsample_counts", "normalize.library_size",
         "normalize.log1p", "normalize.pearson_residuals",
-        "normalize.regress_out", "normalize.scale", "palantir.run",
-        "pca.exact", "pca.randomized", "qc.filter_cells",
+        "normalize.regress_out", "normalize.scale",
+        "palantir.gene_trends", "palantir.run", "pca.exact",
+        "pca.randomized", "qc.doublet_score", "qc.filter_cells",
         "qc.filter_genes", "qc.per_cell_metrics", "qc.per_gene_metrics",
         "qc.subsample", "recipe.pearson_residuals", "recipe.seurat",
         "recipe.weinreb17", "recipe.zheng17", "score.cell_cycle",
@@ -295,8 +298,8 @@ def test_registry_is_separate_from_the_reference():
         "velocity.fate_probabilities", "velocity.graph",
         "velocity.latent_time", "velocity.lineage_drivers",
         "velocity.moments", "velocity.recover_dynamics",
-        "velocity.terminal_states"]
-    assert len(sctt.names()) == 66  # of the reference's 79
+        "velocity.terminal_states", "wishbone.run"]
+    assert len(sctt.names()) == 73  # of the reference's 79
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     meta = sctt.registry.metadata("neighbors.knn_multichip")
     assert meta["sharding"] == "cells" and meta["collective"] is True
