@@ -52,7 +52,7 @@ Phases, each printing one JSON line, each fatal on a failed check:
              the raw planes unchanged at the end.  The CPU runs of
              hvg.select (and phase main's) run on a worker process while
              the card goes on; their checks are read after phase
-             velocity;
+             models;
 3. binned  — ``neighbors.knn`` (k=15) on the main path's output under
              ``knn_impl="pallas_binned"`` (1024 bins): knn_binned
              launched once and knn_select never, recall@10 ≥ 0.98;
@@ -145,7 +145,7 @@ Phases, each printing one JSON line, each fatal on a failed check:
              and 10 epochs (``LAYOUT_CPU_TOL``); walls, peak memory;
 6d'. analysis — the last analysis ops at configs[1]'s width, each twice
              on the card (bit for bit; Wishbone once), against the port
-             on the CPU (the worker, compared after phase velocity):
+             on the CPU (the worker, compared after phase models):
              ``qc.doublet_score`` at its defaults on phase main's raw
              counts with the last 2,048 rows replaced by cross-cluster
              sums (68,579 cells, k_adj = 393: knn_select once a run, its
@@ -186,6 +186,20 @@ Phases, each printing one JSON line, each fatal on a failed check:
              least 2 terminal groups, the fate chain bit for bit in a
              second run; latent time's Spearman against the true time
              printed;
+6f. models — ``model.scvi`` and ``model.scanvi`` on phase main's raw
+             counts at the path's 2,000 HVGs, dense on the card (68,579
+             × 2,000): scVI at its defaults twice (bit for bit; the
+             second storing its normalised expression and saving its
+             model, which must reload bit for bit) and once over 4
+             shards of cuda:0; scANVI at its defaults with 30 % of the
+             cells labelled by their cluster twice (bit for bit) and
+             classifier-only once.  Checks: finite outputs, each ELBO
+             history falling, decoded fractions and class profiles
+             summing to 1 within 1e-4, the card against the worker's
+             CPU runs on 4,096 cells over 2 epochs with the same draws
+             (``MODEL_TOL``); k-means ARI and scANVI's unlabelled
+             accuracy printed, seconds an epoch, steps a second, peak
+             memory;
 7. neighbors — the rest of the kNN surface on the main path's embedding
              (68,579 × 50, k=15): ``knn_impl="xla"`` under both
              ``knn_coarse`` with refine 0 and 32 (``knn_refine_mode``
@@ -195,6 +209,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              label (knn_select once a batch, within-batch recall ≥ 0.99
              against the float64 oracle); ``distance.pairwise`` on 4,096
              rows × all cells within rtol 1e-3, atol 2e-2 of float64;
+             ``neighbors.knn(use_rep=)`` on the path's first 300 log1p
+             columns, euclidean (d = 300: the WIDE build), knn_select
+             once, recall@10 ≥ 0.99;
 8. stream  — BASELINE configs[2..3] at 1.3M cells × 28,672 genes on the
              card (bench.py's atlas stand-in: ``DeviceSyntheticSource``,
              capacity 512, 131,072-row shards, materialized):
@@ -239,8 +256,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              atol 1e-4 of unsharded MAGIC, graph_matvec launched 3 × P²
              or 3 × P times;
 10. edges  — the kNN kernels against their plain versions at small
-             shapes that reach their corners (k = 1 to 512, d = 1 and
-             256, euclidean, self exclusion, bf16, fewer candidates than
+             shapes that reach their corners (k = 1 to 1000, d = 1 to
+             700 — past 256 the lists in device memory and the WIDE
+             builds —, euclidean, self exclusion, bf16, fewer candidates than
              k or than bins, n_bins 128 to 1024, exact ties; for
              knn_select also row counts one off its query tile,
              candidate tile and split boundaries, with empty splits, at
@@ -250,8 +268,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
              split); then the
              graph kernels at theirs (-1 ids, empty rows and
              destinations, repeated ids, a hub of 5,000 incoming edges,
-             rectangular rmatvec, k = 1 and 64, odd d; Jaccard at
-             k = 1 to 256, across k = 16 / 17, with odd n; t-SNE dim 1–4
+             rectangular rmatvec, k = 1 to 300, odd d; Jaccard at
+             k = 1 to 300, across k = 16 / 17 and 256 / 257, with odd
+             n; t-SNE dim 1–4, 5, 8 and 17
              at 2 rows and at row counts one off the repulsion kernel's
              query tile, candidate tile and split boundaries),
              and matvec and rmatvec at every width path (d = 1 to 914):
@@ -298,12 +317,15 @@ Phases, each printing one JSON line, each fatal on a failed check:
              smoothing's k = 50 against b3's anchors; yardstick
              ``torch.cdist`` + ``torch.topk``) and ingest's (17,144 ×
              51,435 × 50, cosine, k = 64), and at phase analysis's:
-             the doublet search (205,737² × 30, euclidean, self
-             excluded, k = 393) and PHATE's cut (16,384² × 50, k = 15).
+             the doublet searches (205,737² × 30, euclidean, self
+             excluded, k = 393 and, at k = 200, 600) and PHATE's cut
+             (16,384² × 50, k = 15), and at phase neighbors' d = 300
+             search (the WIDE build).
 
-The float64 kNN oracles of phases stream and mesh run on the worker
-process while the card goes on; their recalls are checked at the end of
-their phase.
+The float64 kNN oracles run on the card (``card_oracle``).  The CPU
+compares of phases stats, integrate, analysis and models run on the
+worker process and are read after phase models; phase cluster's after
+the kernels line.  Each phase prints a ``clock`` line.
 
 The line before the last is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -363,6 +385,15 @@ def emit(obj: dict) -> None:
 
 
 _POOL = []  # the worker process of the CPU comparisons, made at first use
+_CLOCK = [time.perf_counter()]  # the script's start, then the last mark
+
+
+def clock(phase: str) -> None:
+    """Print the seconds ``phase`` took (since the last mark) and the
+    script's seconds so far, on a line of its own."""
+    now = time.perf_counter()
+    emit({"clock": phase, "s": now - _CLOCK[-1], "at_s": now - _CLOCK[0]})
+    _CLOCK.append(now)
 
 
 def cpu_pool():
@@ -540,7 +571,7 @@ def main_phase(card: str):
 
     from sctools_tpu_torch import Pipeline
     from sctools_tpu_torch.data.synthetic import synthetic_counts
-    from sctools_tpu_torch.ops.knn import knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn import recall_at_k
     from sctools_tpu_torch.ops.knn_kernel import knn_select
 
     t0 = time.perf_counter()
@@ -584,8 +615,8 @@ def main_phase(card: str):
     host_pca = x_pca.cpu().numpy()
     rng = np.random.default_rng(0)
     sample = np.sort(rng.choice(n, N_RECALL, replace=False))
-    oracle, _ = knn_numpy(host_pca[sample], host_pca, k=15,
-                          metric="cosine", chunk=1024)
+    oracle, _ = card_oracle(host_pca[sample], host_pca, k=15,
+                            metric="cosine")
     recall = recall_at_k(idx[sample], oracle, k=10)
     check(recall >= 0.99, f"main path recall@10 {recall} < 0.99")
     hvg_sets, hvg_cpu = hvg_repeat(ds)
@@ -896,7 +927,7 @@ def recipes_phase(main: dict, card: str) -> dict:
     import torch
 
     from sctools_tpu_torch import Pipeline, apply, recipe_pipeline
-    from sctools_tpu_torch.ops.knn import knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn import recall_at_k
     from sctools_tpu_torch.ops.knn_kernel import knn_select
 
     dev = torch.device(DEVICE)
@@ -977,8 +1008,8 @@ def recipes_phase(main: dict, card: str) -> dict:
             host = emb.cpu().numpy()
             sample = np.sort(np.random.default_rng(2).choice(
                 n, N_SAMPLED, replace=False))
-            oracle, _ = knn_numpy(host[sample], host, k=15,
-                                  metric="cosine", chunk=1024)
+            oracle, _ = card_oracle(host[sample], host, k=15,
+                                    metric="cosine")
             recall = recall_at_k(idx[sample], oracle, k=10)
             check(launches > 0, "atlas_knn launched no knn_select kernel")
             check(recall >= 0.99, f"atlas_knn recall@10 {recall} < 0.99")
@@ -1475,54 +1506,19 @@ def cluster_phase(main: dict, card: str) -> dict:
                  for op in ("cluster.leiden", "cluster.leiden_like",
                             "cluster.phenograph")}
 
-    # the port on the CPU, same inputs
-    t0 = time.perf_counter()
+    # the port on the CPU, same inputs, on the worker (cluster_cpu):
+    # ``submit`` sends the job once the worker's earlier compares are
+    # queued, ``finish`` holds its results against the card's
     host = data.to_device("cpu")
-    cpu_rows = []
-    for op, kw, key in CLUSTER_OPS:
-        if op not in CPU_FULL:
-            continue
-        t1 = time.perf_counter()
-        r, coarse = with_coarse_count(
-            lambda: apply(op, host, device="cpu", **kw))
-        r = op_result(r, op, key)
-        row = {"op": op, "cells": n, "cpu_s": time.perf_counter() - t1,
-               "coarse_merges": [card_coarse[op], coarse]}
-        if key is None:
-            check(same_bits(r, card_res[op]),
-                  f"{op}: the CPU result differs from the card's")
-            row["bitwise"] = True
-        else:
-            row.update(labels_agree(card_res[op]["labels"].cpu(),
-                                    r["labels"], idx2, w2,
-                                    f"{op} card against CPU"))
-            if op == "cluster.kmeans":
-                row["centroid_max_abs_err"] = float(
-                    (card_res[op]["kmeans_centroids"].cpu()
-                     - r["kmeans_centroids"]).abs().max())
-        cpu_rows.append(row)
-    del host
-
     # the coarse branch at full width: leiden's first level of moves on
-    # the card, then _modularity_merge on the card and on the CPU
+    # the card, then _modularity_merge on the card (and the CPU)
     first = louvain_moves_arrays(
         torch.from_numpy(idx2).to(dev), torch.from_numpy(w2).to(dev),
         torch.arange(n, dtype=torch.int32, device=dev)).cpu().numpy()
     t1 = time.perf_counter()
     m_card, c_card = with_coarse_count(
         lambda: _modularity_merge(first, idx2, w2, device=dev))
-    card_s = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    m_cpu, c_cpu = with_coarse_count(
-        lambda: _modularity_merge(first, idx2, w2, device="cpu"))
-    row = {"op": "_modularity_merge of leiden's first level", "cells": n,
-           "first_level_communities": int(len(np.unique(first))),
-           "card_s": card_s, "cpu_s": time.perf_counter() - t1,
-           "coarse_merges": [c_card, c_cpu],
-           "communities": int(len(np.unique(m_card)))}
-    row.update(labels_agree(m_card, m_cpu, idx2, w2,
-                            "coarse merge card against CPU"))
-    cpu_rows.append(row)
+    merge_card = (m_card, c_card, time.perf_counter() - t1)
 
     # leiden and louvain on the kNN graph of the first SUB_CELLS cells
     from sctools_tpu_torch import CellData
@@ -1535,31 +1531,100 @@ def cluster_phase(main: dict, card: str) -> dict:
     s_w = sub.obsp["connectivities"][:SUB_CELLS].cpu().numpy()
     s_idx2, s_w2 = _symmetrize_knn(s_idx, s_w.astype(np.float64))
     sub_host = sub.to_device("cpu")
+    sub_card = {}
     for op, _, key in CLUSTER_OPS[:2]:
         t1 = time.perf_counter()
-        a, c_card = with_coarse_count(lambda: apply(op, sub, device=dev))
-        card_s = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        b, c_cpu = with_coarse_count(
-            lambda: apply(op, sub_host, device="cpu"))
-        row = {"op": op, "cells": SUB_CELLS, "card_s": card_s,
-               "cpu_s": time.perf_counter() - t1,
-               "coarse_merges": [c_card, c_cpu],
-               "communities": int(len(np.unique(
-                   a.obs[key].cpu().numpy())))}
-        row.update(labels_agree(a.obs[key].cpu(), b.obs[key], s_idx2, s_w2,
-                                f"{op} card against CPU ({SUB_CELLS} "
-                                "cells)"))
-        row["uns_modularity"] = [float(a.uns[key + "_modularity"]),
-                                 float(b.uns[key + "_modularity"])]
-        cpu_rows.append(row)
-    compare_s = time.perf_counter() - t0
+        a, c = with_coarse_count(lambda: apply(op, sub, device=dev))
+        sub_card[op] = (a.obs[key].cpu(), float(a.uns[key + "_modularity"]),
+                        c, time.perf_counter() - t1)
     emit({"phase": "cluster", "card": card, "cells": n,
           "k": int(idx_h.shape[1]), "symmetrized_cap": int(idx2.shape[1]),
-          "runs": runs, "breakdown": breakdown, "cpu_compare": cpu_rows,
-          "compare_s": compare_s,
+          "runs": runs, "breakdown": breakdown,
           "phase_s": time.perf_counter() - t_phase})
-    return {"jaccard_launches": jaccard_launches}
+    job = []
+
+    def submit() -> None:
+        job.append(cpu_pool().submit(cluster_cpu, host, first, idx2, w2,
+                                     sub_host))
+
+    def finish() -> None:
+        t0 = time.perf_counter()
+        cpu = job[0].result()
+        wait_s = time.perf_counter() - t0
+        rows = []
+        for op, kw, key in CLUSTER_OPS:
+            if op not in CPU_FULL:
+                continue
+            r, coarse, cpu_s = cpu["full"][op]
+            row = {"op": op, "cells": n, "cpu_s": cpu_s,
+                   "coarse_merges": [card_coarse[op], coarse]}
+            if key is None:
+                check(same_bits(r, card_res[op]),
+                      f"{op}: the CPU result differs from the card's")
+                row["bitwise"] = True
+            else:
+                row.update(labels_agree(card_res[op]["labels"].cpu(),
+                                        r["labels"], idx2, w2,
+                                        f"{op} card against CPU"))
+                if op == "cluster.kmeans":
+                    row["centroid_max_abs_err"] = float(
+                        (card_res[op]["kmeans_centroids"].cpu()
+                         - r["kmeans_centroids"]).abs().max())
+            rows.append(row)
+        m_cpu, c_cpu, cpu_s = cpu["merge"]
+        row = {"op": "_modularity_merge of leiden's first level",
+               "cells": n, "first_level_communities": int(len(np.unique(
+                   first))), "card_s": merge_card[2], "cpu_s": cpu_s,
+               "coarse_merges": [merge_card[1], c_cpu],
+               "communities": int(len(np.unique(merge_card[0])))}
+        row.update(labels_agree(merge_card[0], m_cpu, idx2, w2,
+                                "coarse merge card against CPU"))
+        rows.append(row)
+        for op, _, key in CLUSTER_OPS[:2]:
+            lab_a, q_a, c_a, card_s = sub_card[op]
+            lab_b, q_b, c_b, cpu_s = cpu["sub"][op]
+            row = {"op": op, "cells": SUB_CELLS, "card_s": card_s,
+                   "cpu_s": cpu_s, "coarse_merges": [c_a, c_b],
+                   "communities": int(len(np.unique(lab_a.numpy())))}
+            row.update(labels_agree(lab_a, lab_b, s_idx2, s_w2,
+                                    f"{op} card against CPU ({SUB_CELLS} "
+                                    "cells)"))
+            row["uns_modularity"] = [q_a, q_b]
+            rows.append(row)
+        emit({"phase": "cluster_cpu_compare", "cpu_compare": rows,
+              "wait_s": wait_s})
+
+    return {"jaccard_launches": jaccard_launches, "submit": submit,
+            "finish": finish}
+
+
+def cluster_cpu(host, first, idx2, w2, sub_host) -> dict:
+    """The cluster phase's runs on the CPU (a worker job): the CPU_FULL
+    ops on ``host``, ``_modularity_merge`` of leiden's first level
+    ``first`` on the symmetrised graph, leiden and louvain on
+    ``sub_host``; each result with its coarse merges and seconds."""
+    from sctools_tpu_torch import apply
+    from sctools_tpu_torch.ops.cluster import _modularity_merge
+
+    full = {}
+    for op, kw, key in CLUSTER_OPS:
+        if op not in CPU_FULL:
+            continue
+        t1 = time.perf_counter()
+        r, coarse = with_coarse_count(
+            lambda: apply(op, host, device="cpu", **kw))
+        full[op] = (op_result(r, op, key), coarse, time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    m_cpu, c_cpu = with_coarse_count(
+        lambda: _modularity_merge(first, idx2, w2, device="cpu"))
+    merge = (m_cpu, c_cpu, time.perf_counter() - t1)
+    sub = {}
+    for op, _, key in CLUSTER_OPS[:2]:
+        t1 = time.perf_counter()
+        b, c = with_coarse_count(lambda: apply(op, sub_host, device="cpu"))
+        sub[op] = (b.obs[key], float(b.uns[key + "_modularity"]), c,
+                   time.perf_counter() - t1)
+    return {"full": full, "merge": merge, "sub": sub}
 
 
 # ----------------------------------------------------------------------
@@ -1797,29 +1862,34 @@ def stats_phase(main: dict, card: str) -> dict:
           "score.cell_cycle: card and CPU call other phases")
     cmp["score_s"] = time.perf_counter() - t0
 
-    # the block, card against the worker's CPU runs
-    t0 = time.perf_counter()
-    host = job.result()
-    cmp.update(cpu_s=host["s"], wait_s=time.perf_counter() - t0)
-    for method in STATS_METHODS[:3]:
-        row = {}
-        for key in ("scores", "pvals", "logfoldchanges"):
-            a = by_gene(ranks[method], key)[:, :STATS_BLOCK]
-            b = by_gene(host["rank"][method], key)
-            keep = b > STATS_P_FLOOR if key == "pvals" else slice(None)
-            row[key] = within(f64(a[keep]), f64(b[keep]), *STATS_TOL[key])
-        cmp[method] = row
-    fc = apply("de.filter_rank_genes_groups", blk.with_uns(
-        rank_genes_groups=host["rank"]["wilcoxon"]), device=dev,
-        **STATS_FILTER).uns["rank_genes_groups_filtered"]
-    fh = host["filter"]
-    check(same_bits({k: np.asarray(fc[k]) for k in fh},
-                    {k: np.asarray(fh[k]) for k in fh}),
-          "filter_rank_genes_groups: card and CPU differ")
-    cmp["filter_kept"] = int(np.asarray(fh["kept"]).sum())
-    for key in ("morans_i", "gearys_c"):
-        cmp[key] = within(f64(met[key][:STATS_BLOCK]), f64(host[key]),
-                          *STATS_TOL["metrics"])
+    # the block, card against the worker's CPU runs: read by ``finish``
+    # once the worker's earlier jobs are done
+    def finish() -> None:
+        t0 = time.perf_counter()
+        host = job.result()
+        blk_cmp = {"cpu_s": host["s"], "wait_s": time.perf_counter() - t0}
+        for method in STATS_METHODS[:3]:
+            row = {}
+            for key in ("scores", "pvals", "logfoldchanges"):
+                a = by_gene(ranks[method], key)[:, :STATS_BLOCK]
+                b = by_gene(host["rank"][method], key)
+                keep = b > STATS_P_FLOOR if key == "pvals" else slice(None)
+                row[key] = within(f64(a[keep]), f64(b[keep]),
+                                  *STATS_TOL[key])
+            blk_cmp[method] = row
+        fc = apply("de.filter_rank_genes_groups", blk.with_uns(
+            rank_genes_groups=host["rank"]["wilcoxon"]), device=dev,
+            **STATS_FILTER).uns["rank_genes_groups_filtered"]
+        fh = host["filter"]
+        check(same_bits({k: np.asarray(fc[k]) for k in fh},
+                        {k: np.asarray(fh[k]) for k in fh}),
+              "filter_rank_genes_groups: card and CPU differ")
+        blk_cmp["filter_kept"] = int(np.asarray(fh["kept"]).sum())
+        for key in ("morans_i", "gearys_c"):
+            blk_cmp[key] = within(f64(met[key][:STATS_BLOCK]),
+                                  f64(host[key]), *STATS_TOL["metrics"])
+        emit({"phase": "stats_cpu_compare", "genes": STATS_BLOCK,
+              "cpu_compare": blk_cmp})
 
     # graph_matvec's input on this path: the first block's centred values
     idx, w = M._edge_arrays(data)
@@ -1831,7 +1901,7 @@ def stats_phase(main: dict, card: str) -> dict:
     return {"idx": torch.from_numpy(idx).to(dev),
             "w": torch.from_numpy(w.astype(np.float32)).to(dev),
             "x": x - x.mean(dim=0, keepdim=True),
-            "launches": 2 * blocks, "ttest": tt}
+            "launches": 2 * blocks, "ttest": tt, "finish": finish}
 
 
 # ----------------------------------------------------------------------
@@ -2256,20 +2326,27 @@ def integrate_phase(main: dict, card: str, sigma: float = INTEGRATE_SIGMA
            "query": query[np.arange(INTEGRATE_CUT)],
            "ref": ref_out[cut[:3 * INTEGRATE_CUT]]}
     on_card = integrate_cut(inp, DEVICE)
-    t0 = time.perf_counter()
-    on_cpu, more = job.result(), job_ingest.result()
-    wait_s = time.perf_counter() - t0
-    on_cpu["s"].update(more.pop("s"))
-    on_cpu.update(more)
-    cmp = integrate_compare(on_card, on_cpu)
-    cmp.update(card_s=on_card["s"], cpu_s=on_cpu["s"], wait_s=wait_s)
     emit({"phase": "integrate", "card": card, "cells": n,
           "genes": merged.n_genes, "batches": [int(x) for x in
                                                np.diff(bounds)],
           "sigma": sigma, "runs": runs, "quality": quality,
           "anchors_last_merge": int(len(anchors)), "cut": len(cut),
-          "cpu_compare": cmp, "phase_s": time.perf_counter() - t_phase})
-    return {"q": torch.from_numpy(bat.astype(np.float32)).to(dev),
+          "phase_s": time.perf_counter() - t_phase})
+
+    def finish() -> None:
+        """The cut, card against the worker's CPU runs, read once the
+        worker's earlier jobs are done."""
+        t0 = time.perf_counter()
+        on_cpu, more = job.result(), job_ingest.result()
+        wait_s = time.perf_counter() - t0
+        on_cpu["s"].update(more.pop("s"))
+        on_cpu.update(more)
+        cmp = integrate_compare(on_card, on_cpu)
+        cmp.update(card_s=on_card["s"], cpu_s=on_cpu["s"], wait_s=wait_s)
+        emit({"phase": "integrate_cpu_compare", "cut": len(cut),
+              "cpu_compare": cmp})
+
+    return {"finish": finish, "q": torch.from_numpy(bat.astype(np.float32)).to(dev),
             "c": torch.from_numpy(refz.astype(np.float32)).to(dev),
             "anchors": torch.from_numpy(bat[anchors].astype(np.float32))
             .to(dev),
@@ -2301,15 +2378,15 @@ def integrate_kernel_rows(integ: dict, card: str, peaks: dict) -> list:
     each with the launches of its op's run on the path."""
     import torch
 
-    from sctools_tpu_torch.ops.knn import _prep, knn_numpy
+    from sctools_tpu_torch.ops.knn import _prep
 
     rows = []
     q, c, a = integ["q"], integ["c"], integ["anchors"]
     for what, cand, k in (("batch → merged reference", c, 32),
                           ("smoothing: batch → its anchors", a, 50)):
         host_q, host_c = q.cpu().numpy(), cand.cpu().numpy()
-        orc, _ = knn_numpy(host_q[:N_COMPARE], host_c, k=15,
-                           metric="euclidean", chunk=256)
+        orc, _ = card_oracle(host_q[:N_COMPARE], host_c, k=15,
+                             metric="euclidean")
         scale = float((q * q).sum(1).max() + (cand * cand).sum(1).max())
         row = kernel_case(
             f"{q.shape[0]}x{cand.shape[0]}x{DIM} k={k} float32 euclidean "
@@ -2322,9 +2399,9 @@ def integrate_kernel_rows(integ: dict, card: str, peaks: dict) -> list:
         rows.append(row)
     qi = _prep(integ["ingest_q"], "cosine", torch.float32)
     ci = _prep(integ["ingest_c"], "cosine", torch.float32)
-    orc, _ = knn_numpy(integ["ingest_q"][:N_COMPARE].cpu().numpy(),
-                       integ["ingest_c"].cpu().numpy(), k=15,
-                       metric="cosine", chunk=256)
+    orc, _ = card_oracle(integ["ingest_q"][:N_COMPARE].cpu().numpy(),
+                         integ["ingest_c"].cpu().numpy(), k=15,
+                         metric="cosine")
     rows.append(kernel_case(
         f"{qi.shape[0]}x{ci.shape[0]}x{DIM} k=64 float32 (integrate.ingest:"
         " b3 onto b0-b2's PCA, refine 64)", qi, ci, 64, "cosine", orc,
@@ -2466,7 +2543,10 @@ def layouts_phase(graph: dict, card: str) -> dict:
 N_DOUBLETS = 2048  # last rows of the doublet input: cross-cluster sums
 DOUBLET_SEED = 20  # numpy default_rng seed of those pairs and PHATE's sketch
 DOUBLET_CUT = 8192  # first cells of the doublet card-against-CPU cut
+DENSITY_CUT = 8192  # first cells of the density card-against-CPU cut
 DOUBLET_AUC = 0.75  # tests/test_doublet.py:44's gate
+DOUBLET_WIDE_K = 200  # k_adj = 600 at 68,579 cells: past the former cap
+DOUBLET_WIDE_AUC = 0.9
 DA_SEED = 21  # numpy default_rng seed of the planted enrichment
 DA_PLANT = 0.8  # cluster 1's cells go to a condition-A sample with this
 DA_CLUSTER = 1
@@ -2518,6 +2598,45 @@ def excl_oracle(x, rows, k: int) -> np.ndarray:
 
 def host_array(v) -> np.ndarray:
     return np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+
+
+def card_oracle(query, cand, k: int = 15, metric: str = "cosine",
+                exclude_self: bool = False) -> tuple:
+    """The float64 kNN oracle of ``knn_numpy`` (the same float64 scores:
+    rows normalised for cosine, ``-(|q|² - 2 q·c + |c|²)`` for
+    euclidean), computed on ``DEVICE`` by float64 products and
+    ``torch.topk`` in blocks of queries, where the host took 10-30 s at
+    1.3M candidates.  Ties come out in any order, as ``knn_numpy``'s
+    ``argpartition`` leaves them.  Returns (ids (nq, k) int32,
+    distances (nq, k) float32) as numpy."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    q = torch.as_tensor(host_array(query)).to(dev, torch.float64)
+    c = torch.as_tensor(host_array(cand)).to(dev, torch.float64)
+    if metric == "cosine":
+        q = q / torch.clamp(torch.linalg.vector_norm(q, dim=1,
+                                                     keepdim=True), min=1e-12)
+        c = c / torch.clamp(torch.linalg.vector_norm(c, dim=1,
+                                                     keepdim=True), min=1e-12)
+    c2 = (c * c).sum(dim=1)
+    block = max(1, 2 ** 27 // max(1, c.shape[0]))  # 1 GiB of scores
+    ids, dists = [], []
+    for s in range(0, q.shape[0], block):
+        qb = q[s:s + block]
+        score = qb @ c.T
+        if metric != "cosine":
+            score = -(((qb * qb).sum(dim=1)[:, None] - 2 * score)
+                      + c2[None, :])
+        if exclude_self:
+            rows = torch.arange(s, s + qb.shape[0], device=dev)
+            ok = rows < c.shape[0]
+            score[torch.nonzero(ok)[:, 0], rows[ok]] = -torch.inf
+        v, i = torch.topk(score, k, dim=1)
+        ids.append(i.to(torch.int32).cpu())
+        dists.append((1.0 - v if metric == "cosine" else torch.sqrt(
+            torch.clamp(-v, min=0.0))).float().cpu())
+    return torch.cat(ids).numpy(), torch.cat(dists).numpy()
 
 
 @contextlib.contextmanager
@@ -2580,9 +2699,9 @@ def doublet_cut(csr, device, pca=None) -> dict:
             "idx": idx, "dist": dist, "s": time.perf_counter() - t0}
 
 
-def density_cpu(umap, labels) -> dict:
-    """``embed.density`` of the layout ``umap`` (host) on the CPU,
-    ungrouped and by ``labels``."""
+def density_cpu(umap, labels, device="cpu") -> dict:
+    """``embed.density`` of the layout ``umap`` (host) on ``device``
+    (the CPU), ungrouped and by ``labels``, as host arrays."""
     import torch
 
     from sctools_tpu_torch import CellData, apply
@@ -2590,11 +2709,11 @@ def density_cpu(umap, labels) -> dict:
     t0 = time.perf_counter()
     d = CellData(torch.zeros((len(umap), 1)), obs={"cluster_true": labels},
                  obsm={"X_umap": torch.from_numpy(umap)})
-    out = {"umap_density": apply("embed.density", d, device="cpu")
-           .obs["umap_density"].numpy(),
+    out = {"umap_density": apply("embed.density", d, device=device)
+           .obs["umap_density"].cpu().numpy(),
            "umap_density_cluster_true": apply(
-               "embed.density", d, device="cpu", groupby="cluster_true")
-           .obs["umap_density_cluster_true"].numpy()}
+               "embed.density", d, device=device, groupby="cluster_true")
+           .obs["umap_density_cluster_true"].cpu().numpy()}
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -2729,7 +2848,7 @@ def analysis_phase(main: dict, pal: dict, stats: dict, lay: dict,
       distances Spearman > 0.99.
 
     The CPU runs go to the worker; their compares run in the returned
-    ``finish()``, which ``run`` calls after phase velocity.  Returns
+    ``finish()``, which ``run`` calls after phase models.  Returns
     (the kernel rows' inputs, finish)."""
     import torch
 
@@ -2754,7 +2873,8 @@ def analysis_phase(main: dict, pal: dict, stats: dict, lay: dict,
     data, is_dbl = doublet_input(main["raw"])
     cut_csr = data.X[:DOUBLET_CUT]
     pool = cpu_pool()
-    jobs = {"density": pool.submit(density_cpu, umap_h, truth),
+    jobs = {"density": pool.submit(density_cpu, umap_h[:DENSITY_CUT],
+                                   truth[:DENSITY_CUT]),
             "wishbone": pool.submit(wishbone_cpu, idx_h, dist_h, xpca_h)}
 
     def twice(what: str, fn, result, kernel=None):
@@ -2807,7 +2927,7 @@ def analysis_phase(main: dict, pal: dict, stats: dict, lay: dict,
           "qc.doublet_score: two card runs differ off the near-tie rows")
     dbl = (got[0][:n], got[0][n:])
     combined, ids, _ = found[0]
-    check(tuple(ids.shape[1:]) == (k_adj,) and k_adj > KK.K_MAX // 2,
+    check(tuple(ids.shape[1:]) == (k_adj,) and k_adj > MEMORY_K,
           f"doublet search width {tuple(ids.shape)}, k_adj {k_adj}")
     obs_s, sim_s = dbl
     check(np.isfinite(obs_s).all() and obs_s.min() >= 0
@@ -2830,8 +2950,40 @@ def analysis_phase(main: dict, pal: dict, stats: dict, lay: dict,
                "sim_mean": float(sim_s.mean()),
                "singlet_mean": float(obs_s[~is_dbl].mean()),
                "injected_mean": float(obs_s[is_dbl].mean())}
-    kernel_in = {"doublet": (combined, k_adj)}
+    kernel_in = {"doublet": (combined, k_adj, 1)}
     del found, combined, ids, lists, got
+
+    # the same op at k = DOUBLET_WIDE_K: k_adj = 600, past the kernel's
+    # former cap of 512 (the lists in device memory, any k), once, gated
+    # as the default run
+    with recorded_search(dev) as found:
+        KK.knn_select.launches = 0
+        o, s_, peak = timed_run(lambda: apply(
+            "qc.doublet_score", data, device=dev, k=DOUBLET_WIDE_K))
+        wide_launches = KK.knn_select.launches
+    runs.append({"op": f"qc.doublet_score k={DOUBLET_WIDE_K}", "rep": 0,
+                 "s": s_, "peak_gb": peak, "launches": wide_launches})
+    check(wide_launches == 1, f"qc.doublet_score k={DOUBLET_WIDE_K} "
+                              f"launched knn_select {wide_launches} times")
+    k_wide = D._resolve_params(n, 2.0, DOUBLET_WIDE_K)[2]
+    comb_w, ids_w, _ = found[0]
+    check(tuple(ids_w.shape[1:]) == (k_wide,) and k_wide == 600,
+          f"doublet search width {tuple(ids_w.shape)}, k_adj {k_wide}")
+    wide_s = o.obs["doublet_score"][:n].cpu().numpy()
+    check(np.isfinite(wide_s).all() and wide_s.min() >= 0
+          and wide_s.max() <= 1, "k=200 doublet scores not finite in [0, 1]")
+    wide_auc = auc(wide_s[is_dbl], wide_s[~is_dbl])
+    check(wide_auc > DOUBLET_WIDE_AUC,
+          f"k={DOUBLET_WIDE_K} doublet AUC {wide_auc} <= {DOUBLET_WIDE_AUC}")
+    host_w = host_array(comb_w)
+    wide_recall = recall_at_k(host_array(ids_w[:len(host_w)])[rows],
+                              excl_oracle(host_w, rows, 10), k=10)
+    check(wide_recall >= 0.99,
+          f"k={DOUBLET_WIDE_K} doublet search recall@10 {wide_recall}")
+    doublet[f"k{DOUBLET_WIDE_K}"] = {"k_adj": k_wide, "auc": wide_auc,
+                                     "recall_at_10": wide_recall, "s": s_}
+    kernel_in["doublet_wide"] = (comb_w, k_wide, wide_launches)
+    del found, comb_w, ids_w, o
     card_cut = doublet_cut(cut_csr, DEVICE)
     jobs["doublet"] = pool.submit(doublet_cut, cut_csr, "cpu",
                                   card_cut["pca"])
@@ -2846,6 +2998,10 @@ def analysis_phase(main: dict, pal: dict, stats: dict, lay: dict,
             lambda o: o.obs[col][:n]).cpu().numpy()
         check(np.isfinite(dens[col]).all() and dens[col].min() >= 0
               and dens[col].max() <= 1, f"{col} not in [0, 1]")
+    # the card's density of the cut, which the worker's CPU run repeats
+    dens_cut = density_cpu(umap_h[:DENSITY_CUT], truth[:DENSITY_CUT],
+                           device=dev)
+    dens_cut.pop("s")
 
     # de.marker_gene_overlap on the stats phase's t-test ranking
     tt = stats["ttest"]
@@ -2978,14 +3134,14 @@ def analysis_phase(main: dict, pal: dict, stats: dict, lay: dict,
                     "knn_select_launches": phate_knn},
           "card_vs_cpu": cmp, "phase_s": time.perf_counter() - t_phase})
     return kernel_in, lambda: analysis_finish(
-        jobs, card_cut, dens, D_card, waypoints, tau, branch, sm, cmp)
+        jobs, card_cut, dens_cut, D_card, waypoints, tau, branch, sm, cmp)
 
 
 def analysis_finish(jobs, card_cut, dens, D_card, waypoints, tau, branch,
                     sm, cmp) -> None:
     """Phase analysis's compares with the worker's CPU runs (doublet cut,
-    density, wishbone, PHATE's auto-t cut), read after phase velocity so
-    that the worker's ≈ 100 s run beside the card's next phases."""
+    density, wishbone, PHATE's auto-t cut), read after phase models so
+    that the worker's ≈ 70 s run beside the card's next phases."""
     t0 = time.perf_counter()
     hc = jobs["doublet"].result()
     scale = float(np.abs(hc["sim"]).max())
@@ -3011,6 +3167,7 @@ def analysis_finish(jobs, card_cut, dens, D_card, waypoints, tau, branch,
               f"{col}: card against CPU {err} > {ANALYSIS_TOL['density']}")
         cmp[col] = err
     cmp["density_cpu_s"] = hd["s"]
+    cmp["density_cells"] = DENSITY_CUT
     hw = jobs["wishbone"].result()
     fin = np.isfinite(hw["D"])
     d_err = float((np.abs(D_card[fin] - hw["D"][fin])
@@ -3043,23 +3200,25 @@ def analysis_finish(jobs, card_cut, dens, D_card, waypoints, tau, branch,
 
 
 def analysis_kernel_rows(ana: dict, card: str, peaks: dict) -> list:
-    """knn_select at the analysis phase's searches: the doublet search
+    """knn_select at the analysis phase's searches: the doublet searches
     (the observed and simulated cells' 205,737 × 30 embedding against
-    itself, euclidean, self excluded, k = k_adj = 393: the lists wait in
-    device memory) and PHATE's cut (16,384 × 50, euclidean, k = 15),
-    each with its launches a run.  Yardstick: ``torch.cdist`` +
-    ``torch.topk`` (k + 1 with self excluded)."""
-    combined, k_adj = ana["doublet"]
+    itself, euclidean, self excluded, k = k_adj = 393 and, at k = 200,
+    600: the lists wait in device memory) and PHATE's cut (16,384 × 50,
+    euclidean, k = 15), each with its launches a run.  Yardstick:
+    ``torch.cdist`` + ``torch.topk`` (k + 1 with self excluded)."""
+    combined, k_adj, launches_d = ana["doublet"]
+    wide, k_wide, launches_w = ana["doublet_wide"]
     x, phate_launches = ana["phate"]
     rows = []
     for what, q, k, excl, launches, reps in (
             ("qc.doublet_score: observed + simulated, self excluded",
-             combined, k_adj, True, 1, 1),
+             combined, k_adj, True, launches_d, 1),
+            (f"qc.doublet_score k={DOUBLET_WIDE_K}: observed + simulated, "
+             "self excluded", wide, k_wide, True, launches_w, 1),
             ("embed.phate's cut: neighbors.knn", x, 15, False,
              phate_launches, 3)):
-        host = q.cpu().numpy()
-        orc = excl_oracle(host, np.arange(N_COMPARE), 10) if excl else \
-            excl_oracle(host, np.arange(N_COMPARE), 9)
+        orc, _ = card_oracle(q[:N_COMPARE], q, 10 if excl else 9,
+                             "euclidean", exclude_self=True)
         if not excl:  # the search keeps each row itself first
             orc = np.concatenate([np.arange(N_COMPARE)[:, None], orc], 1)
         scale = 4.0 * float((q * q).sum(1).max())
@@ -3073,6 +3232,209 @@ def analysis_kernel_rows(ana: dict, card: str, peaks: dict) -> list:
         row["library_call"] = "torch.cdist + torch.topk"
         rows.append(row)
     return rows
+
+
+def wide_kernel_row(wide, launches: int, card: str, peaks: dict) -> dict:
+    """knn_select at phase neighbors' wide search: the 68,579 cells'
+    WIDE_REP log1p columns against themselves, euclidean, k = 15 (the
+    WIDE build: each stage carries the query tile's feature rows), with
+    that run's launch.  Yardstick: ``torch.cdist`` + ``torch.topk``."""
+    import torch
+
+    from sctools_tpu_torch.ops.knn import _prep
+
+    q = _prep(wide, "euclidean", torch.float32)
+    orc, _ = card_oracle(q[:N_COMPARE], q, 15, "euclidean")
+    row = kernel_case(
+        f"{q.shape[0]}x{q.shape[0]}x{q.shape[1]} k=15 float32 euclidean "
+        "(neighbors.knn use_rep: the path's first 300 log1p HVG columns, "
+        "the WIDE build)", q, q, 15, "euclidean", orc, launches, card,
+        peaks, all_bins=False,
+        library=lambda a, b, kk: library_cdist_topk(a, b, kk),
+        tol=1e-5 * max(1.0, 4.0 * float((q * q).sum(1).max())))
+    row["library_call"] = "torch.cdist + torch.topk"
+    return row
+
+
+# ----------------------------------------------------------------------
+# 6f. models
+# ----------------------------------------------------------------------
+
+MODEL_GENES = 2000  # the main path's HVGs
+MODEL_CUT, MODEL_CUT_EPOCHS = 4096, 2  # the card-against-CPU compare
+MODEL_LABELLED = 0.3  # scANVI's labelled share
+MODEL_MESH = 4  # n_devices of the data-parallel run, on 4 × cuda:0
+# card against CPU on the cut: the latents within this share of their
+# largest value, the ELBO histories relative (measured on the card at
+# 1.2e-6 and 4e-7, about 10x below; PERF.md §6)
+MODEL_TOL = {"latent": 2e-5, "history": 1e-5}
+
+
+def model_labels(truth, seed: int = 21) -> np.ndarray:
+    """The stand-in's cluster of each cell as ``type_<c>`` on a
+    ``MODEL_LABELLED`` share of the cells, ``"Unknown"`` elsewhere."""
+    rng = np.random.default_rng(seed)
+    lab = np.array([f"type_{c}" for c in truth], dtype=object)
+    lab[rng.random(len(truth)) >= MODEL_LABELLED] = "Unknown"
+    return lab.astype(str)
+
+
+def model_cut_run(x, labels, device) -> dict:
+    """``model.scvi`` and ``model.scanvi`` (defaults but epochs) on the
+    cut's counts ``x`` (numpy) on ``device``: their latents and ELBO
+    histories (numpy), for the card-against-CPU compare (a worker job on
+    the CPU: module level, numpy in and out)."""
+    import sctools_tpu_torch as sctt
+
+    data = sctt.CellData(x).with_obs(cell_type=labels)
+    out = {}
+    for op, key in (("model.scvi", "X_scvi"), ("model.scanvi", "X_scanvi")):
+        o = sctt.apply(op, data, device=device, epochs=MODEL_CUT_EPOCHS)
+        out[op] = (o.obsm[key].cpu().numpy(),
+                   np.asarray(o.uns[key[2:] + "_elbo_history"]))
+    return out
+
+
+def models_phase(main: dict, card: str) -> dict:
+    """``model.scvi`` and ``model.scanvi`` on the main stand-in's raw
+    counts at the main path's 2,000 HVGs, dense on the card (68,579 ×
+    2,000, 0.55 GB).  scVI at its defaults (n_latent 10, n_hidden 128,
+    40 epochs, 512 cells a step: 133 steps an epoch) twice, bit for bit,
+    the second run storing its normalised expression and saving its
+    model; once data-parallel over 4 × cuda:0.  scANVI at its defaults
+    with ``MODEL_LABELLED`` of the cells labelled by their stand-in
+    cluster, twice, bit for bit, and ``classifier_only`` once.  Gates:
+    every output finite, each ELBO history's last epoch below its
+    first, the decoded fractions' rows and the class profiles' summing
+    to 1 within 1e-4, the saved model reloading bit for bit (its
+    latents those of the run), and the card against the CPU (the worker)
+    on the first ``MODEL_CUT`` cells over ``MODEL_CUT_EPOCHS`` epochs
+    with the same draws (``MODEL_TOL``).  Reported: k-means ARI of
+    X_scvi and of X_pca against the clusters, scANVI's accuracy on the
+    unlabelled cells, seconds an epoch, steps a second, peak GB."""
+    import tempfile
+
+    import torch
+
+    import sctools_tpu_torch as sctt
+    from sctools_tpu_torch.config import true_f32
+    from sctools_tpu_torch.models import scvi as M
+    from sctools_tpu_torch.ops.cluster import adjusted_rand_index
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    raw, out = main["raw"], main["out"]
+    n = out.n_cells
+    names = list(np.asarray(raw.var["gene_name"]))
+    pos = {g: i for i, g in enumerate(names)}
+    genes = np.array([pos[g] for g in np.asarray(out.var["gene_name"])])
+    check(len(genes) == MODEL_GENES, f"{len(genes)} HVG genes")
+    csr = raw.X[:, genes]
+    truth = out.obs["cluster_true"][:n].cpu().numpy()
+    labels = model_labels(truth)
+    # the CPU half of the compare goes to the worker first
+    cut = csr[:MODEL_CUT].toarray().astype(np.float32)
+    job = cpu_pool().submit(model_cut_run, cut, labels[:MODEL_CUT], "cpu")
+    X = torch.from_numpy(csr.toarray().astype(np.float32)).to(dev)
+    del csr
+    data = sctt.CellData(X).with_obs(cell_type=labels)
+    steps = max(n // 512, 1)
+    runs, results = [], {}
+
+    def run(what, op, fields, **kw):
+        o, s_, peak = timed_run(lambda: sctt.apply(op, data, device=dev,
+                                                   **kw))
+        hist = np.asarray(o.uns[fields[0][2:] + "_elbo_history"])
+        runs.append({"op": what, "s": s_, "peak_gb": peak,
+                     "s_per_epoch": s_ / len(hist),
+                     "steps_per_s": len(hist) * steps / s_,
+                     "elbo_first_last": [float(hist[0]), float(hist[-1])]})
+        check(hist[-1] < hist[0], f"{what}: ELBO history did not fall")
+        got = {f: getattr(o, kind)[f] for kind, f in fields[1:]}
+        got["history"] = hist
+        for f, v in got.items():
+            if isinstance(v, torch.Tensor):
+                check(bool(torch.isfinite(v).all()), f"{what}: {f} not "
+                                                     "finite")
+        return o, got
+
+    scvi_fields = ("X_scvi", ("obsm", "X_scvi"), ("var", "scvi_dispersion"))
+    a = run("model.scvi", "model.scvi", scvi_fields)[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scvi.npz")
+        o, b = run("model.scvi (normalised, saved)", "model.scvi",
+                   scvi_fields, store_normalized=True, save_model_path=path)
+        check(same_bits(a, b), "model.scvi: two card runs differ")
+        rho = o.layers["scvi_normalized"]
+        check(bool(torch.isfinite(rho).all()) and float(
+            (rho.sum(1) - 1).abs().max()) <= 1e-4,
+            "scvi_normalized rows do not sum to 1")
+        del o, rho
+        tree, meta = M.load_model(path)
+        model = M.SCVIModel.from_tree(tree, device=dev)
+        again = os.path.join(tmp, "again.npz")
+        M.save_model(model, again)
+        flat = M.flatten_params(tree)
+        check(all(np.array_equal(v, M.flatten_params(
+            M.load_model(again)[0])[k]) for k, v in flat.items()),
+            "save_model -> load_model is not bit for bit")
+        with torch.no_grad(), true_f32():
+            z = M.encode(model, X, torch.zeros((n, 0), device=dev))
+        check(torch.equal(z, a["X_scvi"]),
+              "the reloaded model's latents differ from the run's")
+        del model, z
+    mesh = sctt.parallel.make_mesh(devices=[DEVICE] * MODEL_MESH)
+    m = run(f"model.scvi over {MODEL_MESH} x {DEVICE}", "model.scvi",
+            scvi_fields, mesh=mesh)[1]
+    scanvi_fields = ("X_scanvi", ("obsm", "X_scanvi"),
+                     ("obs", "scanvi_confidence"),
+                     ("obs", "scanvi_prediction"),
+                     ("uns", "scanvi_class_profiles"))
+    c = run("model.scanvi", "model.scanvi", scanvi_fields)[1]
+    d = run("model.scanvi", "model.scanvi", scanvi_fields)[1]
+    check(same_bits(c, d), "model.scanvi: two card runs differ")
+    prof = c["scanvi_class_profiles"]
+    check(float((prof.sum(1) - 1).abs().max()) <= 1e-4,
+          "scanvi_class_profiles rows do not sum to 1")
+    co = run("model.scanvi classifier_only", "model.scanvi",
+             scanvi_fields[:4], classifier_only=True)[1]
+
+    # reported, not gated: the reference misses its own quality gates
+    unl = labels == "Unknown"
+    want = np.array([f"type_{t}" for t in truth])
+    km = {}
+    for name, emb in (("X_scvi", a["X_scvi"]), ("X_scvi_mesh", m["X_scvi"]),
+                      ("X_scanvi", c["X_scanvi"]),
+                      ("X_pca", out.obsm["X_pca"][:n])):
+        lab = sctt.apply("cluster.kmeans", sctt.CellData(
+            torch.zeros((n, 1), device=dev)).with_obsm(X_pca=emb.float()),
+            device=dev, n_clusters=KMEANS_K, seed=0).obs["kmeans"]
+        km[name] = adjusted_rand_index(host_array(lab)[:n], truth)
+    quality = {"kmeans_ari": km, "scanvi_unlabelled_accuracy": {
+        "default": float((c["scanvi_prediction"][unl] == want[unl]).mean()),
+        "classifier_only": float(
+            (co["scanvi_prediction"][unl] == want[unl]).mean())}}
+
+    # the card against the CPU on the cut, the same draws
+    t0 = time.perf_counter()
+    card_cut = model_cut_run(cut, labels[:MODEL_CUT], dev)
+    cpu_cut = job.result()
+    cmp = {"cells": MODEL_CUT, "epochs": MODEL_CUT_EPOCHS,
+           "wait_s": time.perf_counter() - t0}
+    for op, (z_card, h_card) in card_cut.items():
+        z_cpu, h_cpu = cpu_cut[op]
+        scale = float(np.abs(z_cpu).max())
+        cmp[op] = {
+            "latent": within(f64(z_card), f64(z_cpu), 0.0,
+                             MODEL_TOL["latent"] * scale),
+            "latent_scale": scale,
+            "history": within(f64(h_card), f64(h_cpu),
+                              MODEL_TOL["history"], 0.0)}
+    emit({"phase": "models", "card": card, "cells": n, "genes": MODEL_GENES,
+          "labelled": MODEL_LABELLED, "runs": runs, "bitwise_repeat": True,
+          "quality": quality, "cpu_compare": cmp,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"runs": runs}
 
 
 # ----------------------------------------------------------------------
@@ -3339,7 +3701,7 @@ def velocity_kernel_rows(lay: dict, vel: dict, card: str,
     k=30."""
     import torch
 
-    from sctools_tpu_torch.ops.knn import _prep, knn_numpy
+    from sctools_tpu_torch.ops.knn import _prep
     from sctools_tpu_torch.parallel.graph_multichip import (
         _Sharded, pad_rows_for_mesh)
     from sctools_tpu_torch.parallel.mesh import CELL_AXIS, split_rows
@@ -3370,8 +3732,8 @@ def velocity_kernel_rows(lay: dict, vel: dict, card: str,
     emb = vel["x_pca"]
     n = emb.shape[0]
     host = emb.cpu().numpy()
-    oracle, _ = knn_numpy(host[:N_COMPARE], host, k=VEL_K, metric="cosine",
-                          chunk=256)
+    oracle, _ = card_oracle(host[:N_COMPARE], host, k=VEL_K,
+                            metric="cosine")
     q = _prep(emb, "cosine", torch.float32)
     rows.append(kernel_case(
         f"{n}x{n}x{VEL_PCS} k={VEL_K} float32 (velocity stand-in)", q, q,
@@ -3389,6 +3751,7 @@ XLA_RUNS = [(coarse, refine, mode) for coarse in ("topk", "approx")
             for refine, mode in ((0, None), (32, "blocked"), (32, "sorted"))]
 BBKNN_BATCHES, BBKNN_K = 4, 3
 PAIRWISE_ROWS = 4096
+WIDE_REP = 300  # columns of the wide representation, past d = 256
 
 
 def neighbors_phase(main: dict, card: str) -> dict:
@@ -3403,12 +3766,17 @@ def neighbors_phase(main: dict, card: str) -> dict:
     ``knn_numpy`` within that batch, recall ≥ 0.99); then
     ``distance.pairwise``'s arrays on 4,096 query rows × all cells
     against float64 numpy (rtol 1e-3, atol 2e-2) and the op on those
-    4,096 cells."""
+    4,096 cells; then ``neighbors.knn(use_rep=)`` on a representation
+    wider than the kernel's resident query tile (the first WIDE_REP
+    columns of the path's log1p X, euclidean: the WIDE build, past the
+    former cap of d = 256): knn_select once, recall@10 ≥ 0.99 against
+    the float64 oracle on the sampled cells."""
     import torch
 
-    from sctools_tpu_torch import Transform, configure
+    from sctools_tpu_torch import Transform, apply, configure
+    from sctools_tpu_torch.data.sparse import SparseCells, dense_gene_block
     from sctools_tpu_torch.ops.distance import pairwise_arrays
-    from sctools_tpu_torch.ops.knn import knn_arrays, knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn import knn_arrays, recall_at_k
     from sctools_tpu_torch.ops.knn_kernel import knn_select
 
     dev = torch.device(DEVICE)
@@ -3464,8 +3832,8 @@ def neighbors_phase(main: dict, card: str) -> dict:
     hits = total = 0
     for b in range(BBKNN_BATCHES):
         sel = np.flatnonzero(batch == b)
-        ids, _ = knn_numpy(host[sample], host[sel], k=BBKNN_K + 1,
-                           metric="cosine", chunk=1024)
+        ids, _ = card_oracle(host[sample], host[sel], k=BBKNN_K + 1,
+                             metric="cosine")
         ids = sel[ids]
         for r, row in enumerate(sample):
             want = [i for i in ids[r] if i != row][:BBKNN_K]
@@ -3496,14 +3864,32 @@ def neighbors_phase(main: dict, card: str) -> dict:
                       pairwise_arrays(sub.obsm["X_pca"][:len(rows)],
                                       sub.obsm["X_pca"][:len(rows)])),
           "distance.pairwise differs from pairwise_arrays")
+    X = data.X
+    wide = (dense_gene_block(X, 0, WIDE_REP) if isinstance(X, SparseCells)
+            else X[:n, :WIDE_REP].float())[:n].contiguous()
+    knn_select.launches = 0
+    got = apply("neighbors.knn", data.with_obsm(X_wide=wide), device=dev,
+                k=15, metric="euclidean", use_rep="X_wide")
+    wide_launches = knn_select.launches
+    check(wide_launches == 1, f"neighbors.knn at d = {WIDE_REP} launched "
+                              f"knn_select {wide_launches} times")
+    w_orc, _ = card_oracle(wide[torch.from_numpy(sample).to(dev)], wide,
+                           k=15, metric="euclidean")
+    w_recall = recall_at_k(got.obsp["knn_indices"][:n].cpu().numpy()[sample],
+                           w_orc, k=10)
+    check(w_recall >= 0.99, f"neighbors.knn at d = {WIDE_REP}: recall@10 "
+                            f"{w_recall} < 0.99")
+    del got
     emit({"phase": "neighbors", "card": card, "cells": n, "k": 15,
+          "wide_rep": {"d": WIDE_REP, "knn_select_launches": wide_launches,
+                       "recall_at_10": w_recall},
           "xla_runs": runs, "recall_queries": len(sample),
           "bbknn": {"batches": BBKNN_BATCHES, "k_within": BBKNN_K,
                     "stages": stages, "knn_select_launches": bb_launches,
                     "within_batch_recall": bb_recall},
           "pairwise": {"rows": len(rows), "cols": n, "s": pair_s,
                        "max_excess_over_rtol": worst}})
-    return {"runs": runs}
+    return {"runs": runs, "wide": (wide, wide_launches)}
 
 
 # ----------------------------------------------------------------------
@@ -3674,8 +4060,7 @@ def stream_phase(card: str) -> dict:
     from sctools_tpu_torch.data import stream as ST
     from sctools_tpu_torch.data.synthetic import DeviceSyntheticSource
     from sctools_tpu_torch.ops import knn_kernel as KK
-    from sctools_tpu_torch.ops.knn import (iter_knn_chunks, knn_numpy,
-                                           recall_at_k)
+    from sctools_tpu_torch.ops.knn import iter_knn_chunks, recall_at_k
 
     dev = torch.device(DEVICE)
     torch.cuda.empty_cache()
@@ -3736,9 +4121,9 @@ def stream_phase(card: str) -> dict:
     host = scores.cpu().numpy()
     sample = np.sort(np.random.default_rng(0).choice(n, N_COMPARE,
                                                      replace=False))
-    # the float64 oracle on the worker while the card repeats the passes
-    oracle_job = cpu_pool().submit(knn_numpy, host[sample], host, k=15,
-                                   metric="cosine", chunk=256)
+    t0 = time.perf_counter()
+    oracle, _ = card_oracle(host[sample], host, k=15, metric="cosine")
+    oracle_s = time.perf_counter() - t0
     del dist, host
 
     # stats + HVG twice more: the set may move by near-ties only
@@ -3754,9 +4139,6 @@ def stream_phase(card: str) -> dict:
                           "stream_hvg, run 2 vs run 3")]
 
     store = store_phase(src, card)
-    t0 = time.perf_counter()
-    oracle, _ = oracle_job.result()
-    oracle_wait_s = time.perf_counter() - t0
     recall = recall_at_k(idx[sample].cpu().numpy(), oracle, k=10)
     check(recall >= 0.99, f"stream: recall@10 {recall} < 0.99")
     emit({"phase": "stream", "card": card, "cells": n,
@@ -3768,7 +4150,7 @@ def stream_phase(card: str) -> dict:
           "knn_select_launches": launches, "refine": STREAM_REFINE,
           "refine_mode": config.resolved_refine_mode(n),
           "recall_at_10": recall, "recall_queries": N_COMPARE,
-          "oracle_wait_s": oracle_wait_s,
+          "oracle_s": oracle_s,
           "explained_variance_top5": ev[:5].tolist(),
           "hvg_sym_diffs": hvg_diffs})
     # the source's shards, the stats, HVG and kNN ids stay for the
@@ -3894,7 +4276,7 @@ def stream_mesh_phase(stream: dict, card: str, meshes=None) -> dict:
     import torch
 
     from sctools_tpu_torch.data import stream as ST
-    from sctools_tpu_torch.ops.knn import knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn import recall_at_k
     from sctools_tpu_torch.ops.knn_kernel import knn_select
     from sctools_tpu_torch.parallel import make_mesh
 
@@ -3913,7 +4295,7 @@ def stream_mesh_phase(stream: dict, card: str, meshes=None) -> dict:
         meshes = {f"cuda:0 x {MESH_SHARDS}": make_mesh(
             devices=["cuda:0"] * MESH_SHARDS),
             f"{torch.cuda.device_count()} card(s)": make_mesh()}
-    runs, oracle_job, kept = [], None, None
+    runs, oracle, kept = [], None, None
     for label, mesh in meshes.items():
         knn_select.launches = 0
         out, wall, stages, hvg_scores = staged_stream_pipeline(src, mesh,
@@ -3943,11 +4325,12 @@ def stream_mesh_phase(stream: dict, card: str, meshes=None) -> dict:
         rec_stream = recall_at_k(host_i, want_ids, k=10)
         check(rec_stream >= 0.99, f"{what}: recall@10 {rec_stream} < 0.99 "
                                   "of the stream phase's ids")
-        if oracle_job is None:
+        if oracle is None:
             host = emb.cpu().numpy()
-            oracle_job = cpu_pool().submit(
-                knn_numpy, host[sample], host, k=15, metric="cosine",
-                chunk=256)
+            t0 = time.perf_counter()
+            oracle, _ = card_oracle(host[sample], host, k=15,
+                                    metric="cosine")
+            oracle_s = time.perf_counter() - t0
             kept = {"emb": emb, "launches": launches, "mesh": mesh,
                     "ids": host_i, "label": label}
             del host
@@ -3958,9 +4341,6 @@ def stream_mesh_phase(stream: dict, card: str, meshes=None) -> dict:
         emit({"phase": "stream_mesh", "run": what, "s": wall,
               "stages": stages})
         del out, idx, host_i
-    t0 = time.perf_counter()
-    oracle, _ = oracle_job.result()
-    oracle_wait_s = time.perf_counter() - t0
     recall = recall_at_k(kept["ids"][sample], oracle, k=10)
     check(recall >= 0.99, f"stream_pipeline(mesh={kept['label']}): "
                           f"recall@10 {recall} < 0.99 against the oracle")
@@ -3981,7 +4361,7 @@ def stream_mesh_phase(stream: dict, card: str, meshes=None) -> dict:
           "shards": base.n_shards, "shard_rows": base.shard_rows,
           "single_device_path_s": stream["path_s"], "runs": runs,
           "recall_at_10": recall, "recall_queries": N_COMPARE,
-          "oracle_wait_s": oracle_wait_s,
+          "oracle_s": oracle_s,
           "stats_repeat": {"obs_bitwise": True, "moments_bitwise": True},
           "prefetch": prefetch})
     for key in ("src", "stats", "idx"):
@@ -4037,7 +4417,7 @@ def mesh_phase(stream: dict, graph: dict, card: str) -> dict:
     from sctools_tpu_torch import Transform
     from sctools_tpu_torch.data.dataset import CellData
     from sctools_tpu_torch.ops import graph_kernels as GK
-    from sctools_tpu_torch.ops.knn import knn_numpy, recall_at_k
+    from sctools_tpu_torch.ops.knn import recall_at_k
     from sctools_tpu_torch.ops.knn_kernel import knn_select
     from sctools_tpu_torch.parallel import make_mesh
 
@@ -4063,10 +4443,10 @@ def mesh_phase(stream: dict, graph: dict, card: str) -> dict:
     one_d_sorted = np.sort(one_d.cpu().numpy(), axis=1)
     sample = np.sort(np.random.default_rng(1).choice(n, N_SAMPLED,
                                                      replace=False))
-    # the float64 oracle on the worker while the card runs the meshes
-    oracle_job = cpu_pool().submit(
-        knn_numpy, scores[torch.from_numpy(sample).to(dev)].cpu().numpy(),
-        scores.cpu().numpy(), k=15, metric="cosine", chunk=256)
+    t0 = time.perf_counter()
+    oracle, _ = card_oracle(scores[torch.from_numpy(sample).to(dev)],
+                            scores, k=15, metric="cosine")
+    oracle_s = time.perf_counter() - t0
     sampled = []  # (run, its ids of the sampled queries)
     meshes = {f"cuda:0 x {MESH_SHARDS}": make_mesh(
         devices=["cuda:0"] * MESH_SHARDS)}
@@ -4128,15 +4508,12 @@ def mesh_phase(stream: dict, graph: dict, card: str) -> dict:
         magic.append({"strategy": strategy, "shards": mesh.size, "s": wall,
                       "matvec_launches": launches, "max_abs_err": err})
         del out
-    t0 = time.perf_counter()
-    oracle, _ = oracle_job.result()
-    oracle_wait_s = time.perf_counter() - t0
     for run, (what, ids) in zip(runs, sampled):
         run["recall_at_10"] = recall_at_k(ids, oracle, k=10)
         check(run["recall_at_10"] >= 0.99,
               f"{what}: recall@10 {run['recall_at_10']} < 0.99")
     emit({"phase": "mesh", "card": card, "cells": n, "k": 15,
-          "single_knn_s": single_s, "oracle_wait_s": oracle_wait_s,
+          "single_knn_s": single_s, "oracle_s": oracle_s,
           "recall_queries": N_SAMPLED, "knn_multichip": runs,
           "magic": {"cells": g, "t": MAGIC_T, "unsharded_s": ref_s,
                     "runs": magic}})
@@ -4388,7 +4765,7 @@ def graph_edges_phase() -> None:
     rng = np.random.default_rng(2)
     cases = []
     for n, k, d in ((1000, 15, 2000), (777, 1, 3), (500, 64, 1),
-                    (300, 7, 33), (5, 3, 8)):
+                    (300, 7, 33), (5, 3, 8), (600, 300, 8)):
         idx = rng.integers(0, n, (n, k)).astype(np.int32)
         idx[rng.random((n, k)) < 0.1] = -1
         idx[::13] = -1
@@ -4405,9 +4782,10 @@ def graph_edges_phase() -> None:
         cases.append({"kernel": "graph_matvec+graph_jaccard", "n": n,
                       "k": k, "d": d, "matvec_max_abs_err": mv_err})
     # Jaccard at the kernel's layout changes: a half-warp a row at k <= 16
-    # (odd n: the last warp holds one row), a warp a row above, up to
-    # K_MAX
-    for n, k in ((1001, 16), (999, 17), (301, 256), (7, 16), (513, 32)):
+    # (odd n: the last warp holds one row), a warp a row above, the row's
+    # list in shared memory up to k = 256 and read where it lies past it
+    for n, k in ((1001, 16), (999, 17), (301, 256), (7, 16), (513, 32),
+                 (517, 257), (600, 300)):
         idx = rng.integers(0, n, (n, k)).astype(np.int32)
         idx[rng.random((n, k)) < 0.1] = -1
         idx[::13] = -1
@@ -4423,7 +4801,8 @@ def graph_edges_phase() -> None:
     # add nothing)
     for rows, k, d, n_out in ((3000, 15, 914, 3000), (6000, 15, 1, 6000),
                               (777, 4, 3, 1000), (2000, 9, 33, 1500),
-                              (1000, 6, 5, 300), (5, 3, 8, 5)):
+                              (1000, 6, 5, 300), (5, 3, 8, 5),
+                              (1200, 300, 16, 1200)):
         idx = rng.integers(0, max(1, rows // 2), (rows, k)).astype(np.int32)
         idx[rng.random((rows, k)) < 0.1] = -1
         idx[::13] = -1
@@ -4473,7 +4852,9 @@ def graph_edges_phase() -> None:
                       "k": k, "d": d, "matvec_max_abs_err": mv_err,
                       "rmatvec_max_abs_err": rv_err,
                       "column_slices_bitwise": slices})
-    tsne_cases = [(300, 2), (257, 1), (1000, 3), (513, 4), (1, 2)]
+    # dims 1-4 in registers; 5, 8 and 17 in the runtime-dim kernel
+    tsne_cases = [(300, 2), (257, 1), (1000, 3), (513, 4), (1, 2),
+                  (300, 5), (1000, 5), (257, 8), (513, 17), (1, 5)]
     tsne_cases += [(n, dim) for n in tsne_edge_sizes() for dim in (1, 2, 3, 4)]
     for n, dim in tsne_cases:
         y = torch.from_numpy(
@@ -4648,7 +5029,9 @@ def edges_phase() -> None:
         (2000, 2000, 8, 12, "cosine", torch.float32, False, True),
     ] + split_edge_cases(layout["query_tile"], layout["cand_tile"],
                          layout["splits"]) + memory_list_cases(
-        layout["query_tile"], layout["cand_tile"], layout["splits"])
+        layout["query_tile"], layout["cand_tile"], layout["splits"]) \
+        + wide_cases(layout["query_tile"], layout["cand_tile"],
+                     layout["splits"])
     results = []
     for nq, nc, d, k, metric, dtype, excl, integer in cases:
         if integer:
@@ -4687,7 +5070,7 @@ def memory_list_cases(qb: int, cb: int, splits: int, n_bins=None) -> list:
     """``edges_phase`` (and, with ``n_bins``, ``binned_edges_phase``)
     cases above MEMORY_K, where the lists wait in device memory: k = 300
     and 393 (``qc.doublet_score``'s k_adj at 68,579 cells) and 512 (the
-    kernels' K_MAX), both metrics, self exclusion, bf16, fewer candidates
+    kernels' former cap), both metrics, self exclusion, bf16, fewer candidates
     than k, row counts one off the query tile and the split boundaries;
     the tie cases take "exact" points (every score exact, so the kernel
     must give the plain version's bits)."""
@@ -4705,6 +5088,33 @@ def memory_list_cases(qb: int, cb: int, splits: int, n_bins=None) -> list:
         (2000, 2000, 8, 300, "cosine", f32, False, "exact"),
         (qb - 1, 2 * splits * cb + 1, 8, 512, "euclidean", f32, True,
          "exact"),
+    ]
+    if n_bins is None:
+        return cases
+    return [case[:4] + (nb,) + case[4:] for case, nb in zip(cases, n_bins)]
+
+
+def wide_cases(qb: int, cb: int, splits: int, n_bins=None) -> list:
+    """``edges_phase`` (and, with ``n_bins``, ``binned_edges_phase``)
+    cases past the kernels' former caps of k = 512 and d = 256: k = 600
+    (``qc.doublet_score``'s k_adj at k = 200) and 1000 (more than the
+    candidates), rows of d = 300 and 700 features (the WIDE builds, which
+    stage the query tile with the candidates: 5 and 11 stages a tile),
+    both metrics, self exclusion, bf16, row counts one off the query
+    tile and the split boundaries; the tie cases take "exact" points."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # (nq, nc, d, k, metric, dtype, exclude_self, integer points)
+        (1000, 3000, 30, 600, "euclidean", f32, True, False),
+        (qb + 1, 2 * splits * cb + 1, 8, 600, "cosine", f32, False,
+         "exact"),
+        (130, 500, 50, 1000, "cosine", f32, False, False),
+        (qb - 1, 2 * splits * cb + 1, 300, 20, "cosine", f32, False, False),
+        (2 * qb + 1, 3000, 300, 600, "euclidean", f32, True, False),
+        (qb + 1, 2 * splits * cb - 1, 700, 15, "cosine", bf16, True, False),
+        (1000, 1000, 300, 64, "euclidean", f32, False, "exact"),
     ]
     if n_bins is None:
         return cases
@@ -4804,7 +5214,9 @@ def binned_edges_phase() -> None:
     ] + binned_split_cases(layout["query_tile"], layout["cand_tile"],
                            layout["splits"]) + memory_list_cases(
         layout["query_tile"], layout["cand_tile"], layout["splits"],
-        n_bins=(1024, 512, 1024, 512, 1024, 2048, 512))
+        n_bins=(1024, 512, 1024, 512, 1024, 2048, 512)) + wide_cases(
+        layout["query_tile"], layout["cand_tile"], layout["splits"],
+        n_bins=(1024, 1024, 1024, 128, 1024, 256, 128))
     results = []
     for nq, nc, d, k, n_bins, metric, dtype, excl, integer in cases:
         if integer:
@@ -4932,19 +5344,21 @@ def kernel_case(name_shape: str, q, c, k: int, metric: str, oracle,
            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "card": card}
-    kb = 16 if k <= 16 else 32
     if n_bins is None:
         if all_bins:
             row.update(binned_all_bins(q, c, k, metric))
         layout = KK.knn_select_layout()
         splits = layout["splits"]
+        build = KK.knn_select_build(k, d)
     else:
         layout = KK.knn_binned_layout()
         chunks = -(-min(nc, KK.binned_bins(k, n_bins)) // layout["cand_tile"])
         splits = max(1, min(layout["splits"], chunks))
-    row.update({"split_count": splits,
-                "registers": layout[f"registers_k{kb}"],
-                "local_bytes": layout[f"local_bytes_k{kb}"]})
+        build = KK.knn_binned_build(k, d)
+    # the registers and local bytes of the build this shape launched
+    row.update({"split_count": splits, "list_size": build["list_size"],
+                "wide": build["wide"], "registers": build["registers"],
+                "local_bytes": build["local_bytes"]})
     return row
 
 
@@ -5296,14 +5710,14 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
 
     from sctools_tpu_torch import configure
     from sctools_tpu_torch.data.synthetic import gaussian_blobs
-    from sctools_tpu_torch.ops.knn import _prep, knn_arrays, knn_numpy
+    from sctools_tpu_torch.ops.knn import _prep, knn_arrays
 
     out = []
     n = x_pca.shape[0]
     host_pca = x_pca.cpu().numpy()
     q = _prep(x_pca, "cosine", torch.float32)
-    oracle, _ = knn_numpy(host_pca[:N_COMPARE], host_pca, k=15,
-                          metric="cosine", chunk=256)
+    oracle, _ = card_oracle(host_pca[:N_COMPARE], host_pca, k=15,
+                            metric="cosine")
     out.append(kernel_case(
         f"{n}x{n}x50 k=15 float32 (main path)", q, q, 15, "cosine",
         oracle, launches, card, peaks))
@@ -5316,8 +5730,7 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
     # ring on a one-card mesh) on that recipe's own embedding
     emb = atlas["x_pca"]
     host = emb.cpu().numpy()
-    orc, _ = knn_numpy(host[:N_COMPARE], host, k=15, metric="cosine",
-                       chunk=256)
+    orc, _ = card_oracle(host[:N_COMPARE], host, k=15, metric="cosine")
     q = _prep(emb, "cosine", torch.float32)
     out.append(kernel_case(
         f"{n}x{n}x50 k=15 float32 (atlas_knn recipe: knn_multichip ring, "
@@ -5328,8 +5741,7 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
     pts, _ = gaussian_blobs(WIDE_CANDS, DIM, n_clusters=50, seed=0)
     c_raw = torch.from_numpy(pts).cuda()
     q_raw = c_raw[:WIDE_QUERIES]
-    oracle, _ = knn_numpy(pts[:N_COMPARE], pts, k=15, metric="cosine",
-                          chunk=256)
+    oracle, _ = card_oracle(pts[:N_COMPARE], pts, k=15, metric="cosine")
     for dtype, k in ((torch.float32, 15), (torch.bfloat16, 32)):
         q = _prep(q_raw, "cosine", dtype)
         c = _prep(c_raw, "cosine", dtype)
@@ -5342,12 +5754,12 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
             f"{WIDE_QUERIES}x{WIDE_CANDS}x{DIM} k={k} {str(dtype)[6:]}"
             + (" then refine to 15" if refined is not None else ""),
             q, c, k, "cosine", oracle, launches, card, peaks,
-            ids_for_recall=refined))
+            ids_for_recall=refined, plain_reps=1, library_reps=2))
         if dtype == torch.float32:
             out.append(kernel_case(
                 f"{WIDE_QUERIES}x{WIDE_CANDS}x{DIM} k=15 float32, 1024 "
                 "bins", q, c, 15, "cosine", oracle, binned_launches, card,
-                peaks, n_bins=1024))
+                peaks, n_bins=1024, plain_reps=1, library_reps=2))
         del q, c, refined
     del c_raw, q_raw
 
@@ -5356,8 +5768,7 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
     # seconds a call)
     emb = stream["scores"]
     host = emb.cpu().numpy()
-    oracle, _ = knn_numpy(host[:N_COMPARE], host, k=15, metric="cosine",
-                          chunk=256)
+    oracle, _ = card_oracle(host[:N_COMPARE], host, k=15, metric="cosine")
     c = _prep(emb, "cosine", torch.float32)
     k = STREAM_REFINE
     out.append(kernel_case(
@@ -5372,8 +5783,7 @@ def kernels_phase(x_pca, launches: int, binned_launches: int, card: str,
             if r["mesh"] == f"cuda:0 x {MESH_SHARDS}"}
     m = mesh["shard_rows"]
     shard = c[:m]
-    own, _ = knn_numpy(host[:N_COMPARE], host[:m], k=15, metric="cosine",
-                       chunk=256)
+    own, _ = card_oracle(host[:N_COMPARE], host[:m], k=15, metric="cosine")
     for strategy, cand, orc, what in (
             ("ring", shard, own, "ring step"),
             ("all_gather", c, oracle, "all_gather search")):
@@ -5391,14 +5801,13 @@ def stream_mesh_kernel_row(smesh: dict, card: str, peaks: dict) -> list:
     4-shard embedding, with that run's launches."""
     import torch
 
-    from sctools_tpu_torch.ops.knn import _prep, knn_numpy
+    from sctools_tpu_torch.ops.knn import _prep
 
     emb = smesh["emb"]
     n = emb.shape[0]
     m = mesh_shard_rows(n, MESH_SHARDS)
     host = emb[:m].cpu().numpy()
-    own, _ = knn_numpy(host[:N_COMPARE], host, k=15, metric="cosine",
-                       chunk=256)
+    own, _ = card_oracle(host[:N_COMPARE], host, k=15, metric="cosine")
     shard = _prep(emb[:m], "cosine", torch.float32)
     return [kernel_case(
         f"{m}x{m}x{DIM} k=15 float32 (stream_pipeline(mesh=) ring step, "
@@ -5424,45 +5833,88 @@ def run() -> int:
     import sctools_tpu_torch  # noqa: F401  (fails alone, without the repo)
 
     card = card_phase()
+    clock("card")
     main_out = main_phase(card)
+    clock("main")
     sharded_phase(main_out["raw"], card)
+    clock("sharded")
     atlas, recipes_finish = recipes_phase(main_out, card)
+    clock("recipes")
     binned_launches = binned_phase(main_out, card)
+    clock("binned")
     graph = graph_phase(main_out["out"], card)
+    clock("graph")
     meta = metacells_phase(main_out, card)
+    clock("metacells")
     pal = palantir_phase(main_out, card)
-    neighbors_phase(main_out, card)
+    clock("palantir")
+    nb = neighbors_phase(main_out, card)
+    clock("neighbors")
     cluster = cluster_phase(main_out, card)
+    clock("cluster")
     stats = stats_phase(main_out, card)
+    clock("stats")
     integ = integrate_phase(main_out, card)
+    clock("integrate")
     lay = layouts_phase(graph, card)
+    clock("layouts")
     ana, analysis_finish_ = analysis_phase(main_out, pal, stats, lay, card)
+    clock("analysis")
     vel = velocity_phase(card)
-    recipes_finish()  # the recipes' CPU runs, on the worker meanwhile
-    analysis_finish_()  # and phase analysis's
+    clock("velocity")
+    models_phase(main_out, card)
+    clock("models")
+    cluster["submit"]()  # after the compares read before the end
+    # the worker's CPU runs of the earlier phases, in the order queued
+    recipes_finish()
+    stats["finish"]()
+    integ["finish"]()
+    analysis_finish_()
+    clock("cpu_waits")
     x_pca, launches = main_out["x_pca"], main_out["launches"]
     del main_out
     stream = stream_phase(card)
+    clock("stream")
     smesh = stream_mesh_phase(stream, card)
+    clock("stream_mesh")
     mesh = mesh_phase(stream, graph, card)
+    clock("mesh")
     edges_phase()
+    clock("edges")
     binned_edges_phase()
+    clock("binned_edges")
     graph_edges_phase()
+    clock("graph_edges")
     peaks = bounds_phase()
+    clock("bounds")
     kernels = kernels_phase(x_pca, launches, binned_launches, card, peaks,
                             stream, mesh, atlas)
+    clock("kernel_rows_knn")
     kernels += stream_mesh_kernel_row(smesh, card, peaks)
+    clock("stream_mesh_kernel_row")
     kernels += graph_kernels_phase(graph, cluster, card, peaks)
+    clock("graph_kernels_phase")
     kernels += path_matvec_rows(meta, pal, card, peaks)
+    clock("path_matvec_rows")
     kernels.append(matvec_row(stats["idx"], stats["w"], stats["x"],
                               stats["launches"],
                               "metrics.morans_i, 256-gene block", card,
                               peaks))
+    clock("matvec_row")
     kernels += diffuse_matvec_rows(mesh, card, peaks)
+    clock("diffuse_matvec_rows")
     kernels += rmatvec_rows(meta, pal["launches"], card, peaks)
+    clock("rmatvec_rows")
     kernels += velocity_kernel_rows(lay, vel, card, peaks)
+    clock("velocity_kernel_rows")
     kernels += integrate_kernel_rows(integ, card, peaks)
+    clock("integrate_kernel_rows")
     kernels += analysis_kernel_rows(ana, card, peaks)
+    clock("analysis_kernel_rows")
+    kernels.append(wide_kernel_row(*nb["wide"], card, peaks))
+    clock("wide_kernel_row")
+    cluster["finish"]()  # phase cluster's CPU compares, on the worker
+    clock("cluster_cpu_compare")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,10 @@ and batch-factor strength, reporting its checks instead of stopping.
 For each σ it cuts ``synthetic_counts(cells, 32,738, density=0.02,
 n_clusters=10, seed=0)`` into four batches with the per-gene factor
 exp(σ·N(0, 1)) (``chip_smoke.integrate_batches``), runs
-``chip_smoke.integrate_phase`` (its JSON line: walls, launches, the
+``chip_smoke.integrate_phase`` (its JSON lines: walls, launches, the
 batch mixing and cluster purity of each embedding, ingest's transfer,
-the card-against-CPU compare on the cut) and prints each check that
-failed.  On the CPU the launch checks fail by design (the plain
+then the card-against-CPU compare on the cut) and prints each check
+that failed.  On the CPU the launch checks fail by design (the plain
 versions launch no kernel).  With ``--rows`` it adds the phase's
 ``knn_select`` rows of the kernels line (the card only).
 """
@@ -67,6 +67,7 @@ def main() -> int:
         for sigma in (float(x) for x in args.sigma.split(",")):
             failed.clear()
             integ = cs.integrate_phase({"raw": raw}, card, sigma=sigma)
+            integ["finish"]()  # the card-against-CPU compare on the cut
             print(json.dumps({"sigma": sigma, "failed_checks": failed}),
                   flush=True)
             if args.rows and args.device == "cuda":

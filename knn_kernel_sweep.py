@@ -41,7 +41,9 @@ the libraries named, for instance one built from another commit.
 checkout of another commit (``git archive`` of it, unpacked at
 PARENT_ROOT) in one process on one card: the main path's 50-PC
 embedding (QC → HVG → PCA of the 68,579 × 32,738 synthetic counts, as
-``chip_smoke.py`` runs it), then both widths of configs[3] (f32 k = 15
+``chip_smoke.py`` runs it; also ``knn_select`` at k = 393 and
+``knn_binned`` at k = 300, whose lists wait in device memory), then
+both widths of configs[3] (f32 k = 15
 and bf16 k = 32) for ``knn_select``, and ``knn_binned`` on the embedding
 at AB_BINS_MAIN bins and on the f32 width at AB_BINS_WIDE, in turns
 parent, this tree, this tree, parent.  The two trees' kernels must give
@@ -314,7 +316,11 @@ def ab(parent_root: str) -> int:
     x = main_embedding()
     cwide = blobs(WIDE_C, 50)
     main = "68579x68579x50 k=15 float32 (main path)"
-    cases = [("knn_select", main, x, x, 15, {})]
+    # k = 393 (lists in device memory: qc.doublet_score's k_adj) too
+    cases = [("knn_select", main, x, x, 15, {}),
+             ("knn_select", main.replace("k=15", "k=393"), x, x, 393, {}),
+             ("knn_binned", main.replace("k=15", "k=300") + ", 1024 bins",
+              x, x, 300, {"n_bins": 1024})]
     for dtype, k in ((torch.float32, 15), (torch.bfloat16, 32)):
         c = _prep(cwide, "cosine", dtype)
         cases.append(("knn_select",

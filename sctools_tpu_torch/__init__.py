@@ -28,10 +28,11 @@ The kNN search, the graph tail's diffusion steps and Jaccard weights,
 and the t-SNE repulsion run through hand-written CUDA kernels
 (``csrc/*.cu``), built with nvcc at the first launch.  ``parallel``
 runs the kNN and the diffusion over a single-process mesh of devices
-(``parallel.make_mesh``).
+(``parallel.make_mesh``).  ``models`` trains scVI and scANVI
+(``model.scvi``, ``model.scanvi``) on the card.
 """
 
-from . import data, ops, parallel, utils
+from . import data, models, ops, parallel, utils
 from .config import config, configure
 from .data.concat import concat
 from .data.dataset import CellData
@@ -42,5 +43,5 @@ from .registry import Pipeline, Transform, apply, get, names, register
 
 __all__ = ["CellData", "Pipeline", "SparseCells", "Transform", "apply",
            "concat", "config", "configure", "data", "from_dense",
-           "from_scipy", "get", "names", "ops", "parallel",
+           "from_scipy", "get", "models", "names", "ops", "parallel",
            "recipe_pipeline", "register"]

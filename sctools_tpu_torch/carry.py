@@ -20,7 +20,10 @@ over the reference's arrays through numpy:
   again) into what ``ops.de.logreg_w0`` returns;
 * ``phate_sketch_from_numpy`` turns the reference's start block of
   ``embed.phate``'s subspace iteration (``jax.random.normal`` again)
-  into the ``sketch=`` of ``embed.phate``.
+  into the ``sketch=`` of ``embed.phate``;
+* ``scvi_params_from_numpy`` turns the reference's scVI / scANVI
+  parameters (its ``jax.random`` initial weights, or a trained tree)
+  into the port's ``SCVIModel``.
 """
 
 from __future__ import annotations
@@ -130,3 +133,17 @@ def graph_from_numpy(data: CellData, knn_indices, knn_distances,
     return data.with_obsp(
         knn_indices=torch.from_numpy(idx).to(device),
         knn_distances=torch.from_numpy(dist).to(device)).with_uns(**uns)
+
+
+def scvi_params_from_numpy(params, device="cpu"):
+    """The port's ``models.scvi.SCVIModel`` holding the reference's
+    parameters: its pytree (``{"enc": [{"w", "b"}, ...], "dec": ...,
+    "log_theta", "clf"?, "prior_mu"?}`` as numpy) or its
+    ``flatten_params`` dict (``"param/enc/000/w"`` keys).  Each layer's
+    ``w`` is stored (in, out), as the reference multiplies ``x @ w``;
+    it is transposed into ``nn.Linear.weight`` (out, in)."""
+    from .models.scvi import SCVIModel, unflatten_params
+
+    if any(isinstance(k, str) and "/" in k for k in params):
+        params = unflatten_params(params)
+    return SCVIModel.from_tree(params, device=device)

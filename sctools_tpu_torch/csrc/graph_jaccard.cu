@@ -26,10 +26,13 @@
 //     counts vi from them; then it loads all of j's entries before its
 //     first compare (unrolled), and compares each with every own entry
 //     into four independent counters.
-//   * k > 16: a warp a row, the row's list in shared memory (read as
-//     broadcast int4), a lane a slot (l, l + 32, ...); the lane loads
-//     j's entries 16 at a time, all issued before their compares, into
-//     four independent counters.
+//   * 16 < k <= K_SHARED: a warp a row, the row's list in shared memory
+//     (read as broadcast int4), a lane a slot (l, l + 32, ...); the lane
+//     loads j's entries 16 at a time, all issued before their compares,
+//     into four independent counters.
+//   * k > K_SHARED (any k): the same warp a row and lane a slot, the
+//     row's own list read where it lies (every lane of the warp reads the
+//     same entry, one cached broadcast), so no shared memory bounds k.
 // In both, padding and entries past k are masked to values that never
 // match (-2 in j's list, -3 in the row's own).
 // Counts are exact integers and the division is IEEE (the build never
@@ -53,7 +56,7 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int K_MAX = 256;
+constexpr int K_SHARED = 256;  // most entries of a row staged in shared memory
 constexpr int SEG = 16;  // entries of j's list loaded before their compares
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -161,6 +164,47 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// k > K_SHARED: warp w of the block owns row blockIdx.x * WARPS + w, its
+// own list read from idx (masked on the fly: padding as -3).
+__global__ void __launch_bounds__(THREADS)
+    jaccard_long_kernel(const int* __restrict__ idx, int n, int k,
+                        float* __restrict__ out) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t row = (int64_t)blockIdx.x * WARPS + warp;
+  if (row >= n) return;  // uniform across the warp
+  const int* ri = idx + row * k;
+  int vi = 0;
+  for (int u = lane; u < k; u += 32) vi += ri[u] >= 0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    vi += __shfl_xor_sync(FULL, vi, off);
+  for (int t = lane; t < k; t += 32) {
+    const int j = ri[t];
+    float res = 0.f;
+    if (j >= 0 && j < n) {
+      const int* rj = idx + (int64_t)j * k;
+      int c0 = 0, c1 = 0, c2 = 0, c3 = 0, vj = 0;
+      for (int s0 = 0; s0 < k; s0 += SEG) {
+        int v[SEG];
+        load_seg(v, rj, s0, k, vj);
+        for (int u = 0; u < k; ++u) {
+          const int o = ri[u] < 0 ? -3 : ri[u];
+#pragma unroll
+          for (int s = 0; s < SEG; s += 4) {
+            c0 += v[s] == o;
+            c1 += v[s + 1] == o;
+            c2 += v[s + 2] == o;
+            c3 += v[s + 3] == o;
+          }
+        }
+      }
+      res = jaccard_of(c0 + c1 + c2 + c3, vi, vj);
+    }
+    out[row * k + t] = res;
+  }
+}
+
 template <int K>
 void launch_warp(const int* idx, int n, int k, float* out,
                  cudaStream_t stream) {
@@ -172,11 +216,11 @@ void launch_warp(const int* idx, int n, int k, float* out,
 
 extern "C" {
 
-// idx (n, k) int32 row-major, out (n, k) float.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// idx (n, k) int32 row-major, out (n, k) float, any k >= 1.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int sct_graph_jaccard(const void* idx, int n, int k, void* out,
                       void* stream) {
-  if (n < 0 || k < 1 || k > K_MAX) return (int)cudaErrorInvalidValue;
+  if (n < 0 || k < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int* ix = static_cast<const int*>(idx);
   float* o = static_cast<float*>(out);
@@ -191,8 +235,11 @@ int sct_graph_jaccard(const void* idx, int n, int k, void* out,
     launch_warp<64>(ix, n, k, o, s);
   } else if (k <= 128) {
     launch_warp<128>(ix, n, k, o, s);
+  } else if (k <= K_SHARED) {
+    launch_warp<K_SHARED>(ix, n, k, o, s);
   } else {
-    launch_warp<256>(ix, n, k, o, s);
+    jaccard_long_kernel<<<(n + WARPS - 1) / WARPS, THREADS, 0, s>>>(ix, n, k,
+                                                                   o);
   }
   return (int)cudaGetLastError();
 }

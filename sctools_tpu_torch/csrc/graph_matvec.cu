@@ -33,7 +33,6 @@
 
 namespace {
 
-constexpr int K_MAX = 256;
 // Column tile and L2 slab of the gather (graph_gather.cuh), chosen by
 // graph_kernel_sweep.py on an H100 80GB HBM3 at 700 W, on a random
 // 68,579 x 15 graph: at d = 2000 (MAGIC's width) 64-column tiles with
@@ -63,8 +62,7 @@ static int graph_matvec_launch(const void* idx, const void* w,
                                const void* x, int n, int k, int nx, int d,
                                void* y, void* stream, int tile_cols,
                                int64_t slab_bytes) {
-  if (n < 0 || nx < 0 || d < 0 || k < 1 || k > K_MAX)
-    return (int)cudaErrorInvalidValue;
+  if (n < 0 || nx < 0 || d < 0 || k < 1) return (int)cudaErrorInvalidValue;
   if (n == 0 || d == 0) return 0;
   const SlotPairs pairs{static_cast<const int*>(idx),
                         static_cast<const float*>(w), k, nx};
@@ -76,8 +74,9 @@ static int graph_matvec_launch(const void* idx, const void* w,
 extern "C" {
 
 // idx (n, k) int32, w (n, k) float, x (nx, d) float, y (n, d) float, all
-// row-major.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// row-major; any k >= 1 (a row's k slots are one list of the gather,
+// whose lists have no length bound).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 int sct_graph_matvec(const void* idx, const void* w, const void* x, int n,
                      int k, int nx, int d, void* y, void* stream) {
   return graph_matvec_launch(idx, w, x, n, k, nx, d, y, stream, TILE_COLS,

@@ -62,10 +62,13 @@
 //     cells shifted into best[0] by register moves, so that its code
 //     stays small: unrolled, it was fetched anew at every chunk end and
 //     cost more than its merges (PERF.md).
-//   * Since the lists already wait in device memory between chunks, the
-//     K = 512 build (256 < k <= 512) keeps them as the others do: a round
-//     trip holds a pair's two lists in registers (16 slots a lane each)
-//     only inside pair_trip.
+//   * Above K_REG entries (the K_MEM build, any k) a round trip leaves
+//     the lists where they wait and merges them there slot by slot
+//     (knn_core.cuh MemList), so no list is held in registers; at the
+//     last chunk their keys become ids in place.
+//   * Rows of more than D_RESIDENT features take the WIDE builds of the
+//     core: each stage carries the query tile's feature rows beside the
+//     candidates', so any d fits, and each score is the same fmaf chain.
 //   * Splits go over bin chunks, not candidate ranges: S = min(SPLITS,
 //     chunks) blocks a query tile, each over a contiguous range of
 //     chunks, so one block holds each bin whole (a bin split over two
@@ -104,6 +107,8 @@
 #define KNN_UNROLL 10
 #endif
 
+#include <type_traits>
+
 #include "knn_core.cuh"
 
 namespace {
@@ -115,7 +120,7 @@ constexpr size_t ROUND_BYTES = sizeof(int) * TM * TN * THREADS;
 // A query row's selection between chunks: the threshold of its list as
 // stored (entry k - 1; -inf and NO_ID until the list holds k), and the
 // entries waiting in its row buffer, plus STORED once the list was
-// stored.  12 bytes a row, so that d = D_MAX still fits.
+// stored.  12 bytes a row, so that d = D_RESIDENT still fits.
 constexpr int STORED = 1 << 8;
 struct RowState {
   float tv;
@@ -155,6 +160,11 @@ __device__ __forceinline__ void fold(float (&acc)[TM][TN],
   }
 }
 
+// The list a round trip works on, by type: a List<SL> in registers or a
+// MemList left in device memory.
+template <class L>
+struct Tag {};
+
 // A row's list as the lanes left it in device memory at the last chunk's
 // end (v, id: the row's k entries), or empty when `fresh`.
 template <int SL>
@@ -190,6 +200,46 @@ __device__ __forceinline__ void store_list(const List<SL>& l, float* v,
     v[jj] = l.v[w];
     id[jj] = !last ? key
                    : isfinite(l.v[w]) ? key % R * n_bins + key / R : -1;
+  }
+}
+
+// A round trip's list of a row: loaded into registers (empty when
+// `fresh`), or left in device memory (MemList: cleared there when
+// `fresh`; a row past nq gets a threshold nothing passes and is never
+// read or written).
+template <int SL>
+__device__ __forceinline__ List<SL> open_list(Tag<List<SL>>, float* v,
+                                              int* id, int k, int lane,
+                                              bool fresh, bool row_ok) {
+  return load_list<SL>(v, id, k, lane, fresh || !row_ok);
+}
+template <int SL>
+__device__ __forceinline__ MemList open_list(Tag<MemList>, float* v, int* id,
+                                             int k, int lane, bool fresh,
+                                             bool row_ok) {
+  if (!row_ok) return MemList{v, id, CUDART_INF_F, -1};
+  if (!fresh) return MemList{v, id, v[k - 1], id[k - 1]};
+  for (int jj = lane; jj < k; jj += 32) v[jj] = -CUDART_INF_F, id[jj] = NO_ID;
+  __syncwarp();
+  return MemList{v, id, -CUDART_INF_F, NO_ID};
+}
+
+// Store a round trip's list (List) or, at the `last` chunk, turn a
+// MemList's keys into ids in place.
+template <int SL>
+__device__ __forceinline__ void close_list(const List<SL>& l, float* v,
+                                           int* id, int k, int lane,
+                                           bool last, int R, int n_bins) {
+  store_list<SL>(l, v, id, k, lane, last, R, n_bins);
+}
+template <int SL>
+__device__ __forceinline__ void close_list(const MemList& l, float*, int*,
+                                           int k, int lane, bool last, int R,
+                                           int n_bins) {
+  if (!last) return;
+  for (int jj = lane; jj < k; jj += 32) {
+    const int key = l.id[jj];
+    l.id[jj] = isfinite(l.v[jj]) ? key % R * n_bins + key / R : -1;
   }
 }
 
@@ -230,8 +280,8 @@ __device__ __forceinline__ Cells<true> survivors(const float (&best)[TN],
 // first stored), merge a buffer that would overflow, append the cells
 // that pass, merge the buffers whole, store the lists (at the last chunk
 // the ids) and their thresholds.  Out of line, like take_cells and
-// merge_row: one copy serves every pair.
-template <int SL>
+// merge_row: one copy serves every pair.  L is List<SL> or MemList.
+template <int SL, class L>
 __device__ __noinline__ void pair_trip(Cells<true> cl, Sink s, int A,
                                        bool last, int lane) {
   __syncwarp();  // converged: the warp intrinsics below take their fast form
@@ -245,9 +295,9 @@ __device__ __noinline__ void pair_trip(Cells<true> cl, Sink s, int A,
   float* vb = s.lv + (int64_t)qb * k;
   int* ia = s.li + (int64_t)qa * k;
   int* ib = s.li + (int64_t)qb * k;
-  Pair<List<SL>> p;
-  p.a = load_list<SL>(va, ia, k, lane, fa < STORED || qa >= s.nq);
-  p.b = load_list<SL>(vb, ib, k, lane, fb < STORED || qb >= s.nq);
+  Pair<L> p;
+  p.a = open_list<SL>(Tag<L>{}, va, ia, k, lane, fa < STORED, qa < s.nq);
+  p.b = open_list<SL>(Tag<L>{}, vb, ib, k, lane, fb < STORED, qb < s.nq);
   p.na = fa % STORED, p.nb = fb % STORED;
   if (p.na + p.nb > 0) {
     // a buffer that would overflow is merged first, so that the cells
@@ -286,8 +336,8 @@ __device__ __noinline__ void pair_trip(Cells<true> cl, Sink s, int A,
   // own, so that fewer of the next chunks' cells pass them
   if (p.na > 0) p.a = merge_row<SL>(p.a, bva, bia, p.na, k, lane);
   if (p.nb > 0) p.b = merge_row<SL>(p.b, bvb, bib, p.nb, k, lane);
-  if (qa < s.nq) store_list<SL>(p.a, va, ia, k, lane, last, s.R, s.n_bins);
-  if (qb < s.nq) store_list<SL>(p.b, vb, ib, k, lane, last, s.R, s.n_bins);
+  if (qa < s.nq) close_list<SL>(p.a, va, ia, k, lane, last, s.R, s.n_bins);
+  if (qb < s.nq) close_list<SL>(p.b, vb, ib, k, lane, last, s.R, s.n_bins);
   __syncwarp();  // every lane has read the states
   if (lane == 0) {
     *sa = RowState{p.a.tv, p.a.ti, STORED};
@@ -296,7 +346,7 @@ __device__ __noinline__ void pair_trip(Cells<true> cl, Sink s, int A,
   __syncwarp();
 }
 
-template <int K>
+template <int K, bool WIDE>
 __global__ void __launch_bounds__(THREADS, KNN_MINB)
     knn_binned_kernel(const float* __restrict__ qP,
                       const float* __restrict__ cP,
@@ -306,8 +356,10 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
                       int nchunks, int full_chunks, int exclude_self,
                       float* __restrict__ out_v, int* __restrict__ out_i) {
   constexpr int SL = (K + 31) / 32;  // list slots a lane
+  // a round trip's lists: in registers, or above K_REG in device memory
+  using L = std::conditional_t<(K > K_REG), MemList, List<SL>>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem m = carve(smem, d, kc, nring);
+  const Smem m = carve(smem, query_rows(d, kc, nring, WIDE), kc, nring);
   int* kept = reinterpret_cast<int*>(m.end) + threadIdx.x;
   RowState* rs = reinterpret_cast<RowState*>(m.end + ROUND_BYTES);
 
@@ -323,6 +375,7 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   const int step = n_bins / CB;  // tiles from one round of a chunk to the next
 
   const int warp = tid >> 5, lane = tid & 31;
+  const float* qtile = qP + (int64_t)blockIdx.x * d * QB;
   // Stage s of the sweep: visit v = s / chunks -- chunk by chunk, rounds
   // ascending -- feature rows from (s % chunks) * kc, into ring buffer
   // s % nring.
@@ -336,12 +389,11 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
       ch = ch0 + nfull + u / (R - 1), r = u % (R - 1);
     }
     const int k0 = st % chunks * kc;
-    const int b = st % nring;
-    bulk_load(m.ring + b * kc * CB,
-              cP + ((int64_t)(ch + r * step) * d + k0) * CB,
-              min(kc, d - k0) * CB * 4, m.full + b);
+    load_stage<WIDE>(m, st % nring, kc, qtile + (int64_t)k0 * QB,
+                     cP + ((int64_t)(ch + r * step) * d + k0) * CB,
+                     min(kc, d - k0));
   };
-  ring_start(m, qP + (int64_t)blockIdx.x * d * QB, d, nring, stages, issue);
+  ring_start(m, WIDE ? nullptr : qtile, d, nring, stages, issue);
   if (tid < QB) rs[tid] = RowState{-CUDART_INF_F, NO_ID, 0};
   __syncthreads();
   const int g = lane >> 4;                     // which row of each pair
@@ -360,13 +412,13 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   // of the tile
   int ch = ch0, rounds = nfull > 0 ? R : R - 1, r = 0, j = 0;
 
-  if (stages > 0) bar_wait(m.qbar, 0);
+  if (stages > 0 && !WIDE) bar_wait(m.qbar, 0);
   for (int s = 0; s < stages; ++s) {
     const int b = s % nring;
     bar_wait(m.full + b, (s / nring) & 1);  // stage s is in
     const int k0 = j * kc;
-    score_stage(acc, m.qs + k0 * QB, m.ring + b * kc * CB, min(kc, d - k0),
-                r0, c0l);
+    score_stage(acc, stage_queries<WIDE>(m, b, kc, k0), m.ring + b * kc * CB,
+                min(kc, d - k0), r0, c0l);
     release(m.done, b, s, nring, stages, lane, issue);
     if (++j < chunks) continue;
     j = 0;
@@ -410,7 +462,7 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
           if (lane == 0) rs[A].n = fa + ps.na, rs[A + 4].n = fb + ps.nb;
         }
       }
-      if (trip) pair_trip<SL>(cl, sink, A, last, lane);
+      if (trip) pair_trip<SL, L>(cl, sink, A, last, lane);
 #pragma unroll
       for (int h = 0; h + 1 < TM; ++h)
 #pragma unroll
@@ -435,15 +487,16 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   }
 }
 
-template <int K>
+template <int K, bool WIDE>
 cudaError_t launch(const float* qP, const float* cP, int nq, int nc, int d,
                    int k, int n_bins, int euclid, int exclude_self,
                    float* out_v, int* out_i, float* scratch,
                    cudaStream_t stream) {
   int kc, nring;
-  stage_shape(d, EXTRA_BYTES, &kc, &nring);
-  const size_t smem = smem_bytes(d, kc, nring, EXTRA_BYTES);
-  auto kern = knn_binned_kernel<K>;
+  stage_shape(d, EXTRA_BYTES, WIDE, &kc, &nring);
+  const size_t smem =
+      smem_bytes(query_rows(d, kc, nring, WIDE), kc, nring, EXTRA_BYTES);
+  auto kern = knn_binned_kernel<K, WIDE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)  // about 200 KB a block at d = 50
@@ -480,8 +533,8 @@ extern "C" {
 // rows and columns a lane, out[6] / out[7] registers and local bytes a
 // thread at K = 16, out[8] / out[9] at K = 32.
 int sct_knn_binned_layout(void* out) {
-  return layout(static_cast<int*>(out), knn_binned_kernel<16>,
-                knn_binned_kernel<32>);
+  return layout(static_cast<int*>(out), knn_binned_kernel<16, false>,
+                knn_binned_kernel<32, false>);
 }
 
 // q and c packed tile-major as float (pack_tiles in ops/knn_kernel.py),
@@ -493,8 +546,8 @@ int sct_knn_binned_layout(void* out) {
 int sct_knn_binned(const void* q, const void* c, int nq, int nc, int d,
                    int k, int n_bins, int euclid, int exclude_self,
                    void* out_v, void* out_i, void* scratch, void* stream) {
-  if (nq < 0 || nc < 0 || d < 1 || d > D_MAX || k < 1 || k > K_MAX ||
-      n_bins < k || n_bins % CB != 0 || (int64_t)nc + n_bins > INT32_MAX)
+  if (nq < 0 || nc < 0 || d < 1 || k < 1 || n_bins < k || n_bins % CB != 0 ||
+      (int64_t)nc + n_bins > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (nq == 0) return 0;
   const float* qP = static_cast<const float*>(q);
@@ -503,23 +556,23 @@ int sct_knn_binned(const void* q, const void* c, int nq, int nc, int d,
   int* oi = static_cast<int*>(out_i);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 16)
-    return (int)launch<16>(qP, cP, nq, nc, d, k, n_bins, euclid,
-                           exclude_self, ov, oi, sc, s);
-  if (k <= 32)
-    return (int)launch<32>(qP, cP, nq, nc, d, k, n_bins, euclid,
-                           exclude_self, ov, oi, sc, s);
-  if (k <= 64)
-    return (int)launch<64>(qP, cP, nq, nc, d, k, n_bins, euclid,
-                           exclude_self, ov, oi, sc, s);
-  if (k <= 128)
-    return (int)launch<128>(qP, cP, nq, nc, d, k, n_bins, euclid,
-                            exclude_self, ov, oi, sc, s);
-  if (k <= 256)
-    return (int)launch<256>(qP, cP, nq, nc, d, k, n_bins, euclid,
-                            exclude_self, ov, oi, sc, s);
-  return (int)launch<512>(qP, cP, nq, nc, d, k, n_bins, euclid, exclude_self,
-                          ov, oi, sc, s);
+  return (int)by_shape(k, d, [&](auto K, auto WIDE) {
+    return launch<decltype(K)::value, decltype(WIDE)::value>(
+        qP, cP, nq, nc, d, k, n_bins, euclid, exclude_self, ov, oi, sc, s);
+  });
+}
+
+// The build a search at (k, d) launches, as sct_knn_select_build gives
+// the exact kernel's: out[0] list size, out[1] WIDE, out[2] / out[3]
+// registers and local bytes a thread.
+int sct_knn_binned_build(int k, int d, void* out) {
+  if (d < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  return (int)by_shape(k, d, [&](auto K, auto WIDE) {
+    return build_of(o, knn_binned_kernel<decltype(K)::value,
+                                         decltype(WIDE)::value>,
+                    K, WIDE);
+  });
 }
 
 }  // extern "C"

@@ -8,6 +8,9 @@
 //   by one cp.async.bulk that completes on an mbarrier.
 // * The ring.  A block keeps its QB queries resident in shared memory and
 //   streams candidate stages through a ring of up to RING_MAX buffers.
+//   Rows wider than D_RESIDENT features do not stay resident: each stage
+//   then carries the query tile's same feature rows beside the
+//   candidates' (the WIDE builds), so any d fits.
 //   Each stage's copy completes on its "full" mbarrier, which the warps
 //   wait on; the last warp done with a buffer (a shared-memory counter)
 //   issues the copy of the stage that refills it (release).  No
@@ -20,13 +23,16 @@
 //   the TM x TN scores at rows w*RW + 8h + 4g + i and columns 64h + 4cg +
 //   j of a tile, fed by TM/4 + TN/4 float4 shared-memory loads a feature
 //   row (score_stage).  Each score is one fmaf chain over kk = 0 .. d - 1
-//   from 0.f, whatever the staging.
+//   from 0.f, whatever the staging: the partial sums of a wide row's
+//   stages add into the same cells before any selection, so a WIDE build
+//   gives the bits the resident one would.
 // * The lists.  A query's top-k list is spread over its warp (entry j in
 //   lane j % 32, slot j / 32) in the order (value descending, key
 //   ascending), with entry k - 1 as its threshold.  Up to K_REG entries
 //   the list lives in the warp's registers (List); above it, in device
 //   memory at the row's k output slots, with only its threshold in
-//   registers (MemList), and a merge loads it, merges and stores it.  Cells that may enter
+//   registers (MemList), and a merge streams it slot by slot (any k).
+//   Cells that may enter
 //   go, out of line, to the row's 32-entry buffer in shared memory
 //   (take_cells: positions by ballot and popc), and a full buffer is
 //   merged into the list by a bitonic sort and merge-split (merge_row).
@@ -50,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef KNN_TM
 #define KNN_TM 4  // query rows of the score tile a lane holds
@@ -87,12 +95,15 @@ constexpr int UNROLL = KNN_UNROLL;
 constexpr int CAP = 32;             // entries a row buffer holds
 constexpr int RING_MAX = KNN_RING;  // candidate stages in flight at most
 constexpr int BAR_BYTES = 128;      // the mbarriers, before the tiles
-constexpr int D_MAX = 256;
-constexpr int K_MAX = 512;
+// Most feature rows the query tile keeps resident in shared memory; a
+// wider query tile is staged with the candidates (the WIDE builds).
+constexpr int D_RESIDENT = 256;
 // Most entries a list keeps in registers: RW lists of K_REG / 32 (value,
 // id) pairs a lane.  Above it a list lives in device memory (MemList):
-// RW lists of 512 would need 256 registers a lane.
+// RW lists of 512 would need 256 registers a lane.  K_MEM is the build
+// that serves every k above K_REG: its lists have no upper bound.
 constexpr int K_REG = 256;
+constexpr int K_MEM = 512;
 constexpr int SMEM_MAX = 232448;     // dynamic shared memory of a block
 constexpr int MERGE_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
@@ -122,26 +133,35 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
       "r"(parity)
       : "memory");
 }
-// Copy `bytes` (a multiple of 16) from global src to shared dst; the copy
-// completes on `bar`, which the caller has told to expect the bytes.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          unsigned bytes, uint64_t* bar) {
+// Arrive on `bar` and tell it to expect `bytes` more.
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, unsigned bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
           smem_addr(bar)),
       "r"(bytes)
       : "memory");
+}
+// Copy `bytes` (a multiple of 16) from global src to shared dst; the copy
+// completes on `bar`, which has been told to expect the bytes.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  expect_bytes(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
+}
 
 // The shared memory of a block, from its start: the barriers (the ring's
 // "full" mbarriers, the query tile's, the ring's done counters), the
-// query tile [d][QB], the ring nring x [kc][CB], the row buffers'
-// values and ids [QB][CAP] each.
+// query tile [qrows][QB] (all d rows, or a WIDE build's nring stages of
+// kc rows), the ring nring x [kc][CB], the row buffers' values and ids
+// [QB][CAP] each.
 struct Smem {
   uint64_t* full;
   uint64_t* qbar;
@@ -152,14 +172,14 @@ struct Smem {
   int* buf_i;
   unsigned char* end;  // what a kernel adds after these
 };
-__device__ __forceinline__ Smem carve(unsigned char* smem, int d, int kc,
+__device__ __forceinline__ Smem carve(unsigned char* smem, int qrows, int kc,
                                       int nring) {
   Smem m;
   m.full = reinterpret_cast<uint64_t*>(smem);
   m.qbar = m.full + RING_MAX;
   m.done = reinterpret_cast<int*>(m.qbar + 1);
   m.qs = reinterpret_cast<float*>(smem + BAR_BYTES);
-  m.ring = m.qs + d * QB;
+  m.ring = m.qs + qrows * QB;
   m.buf_v = m.ring + nring * kc * CB;
   m.buf_i = reinterpret_cast<int*>(m.buf_v + QB * CAP);
   m.end = reinterpret_cast<unsigned char*>(m.buf_i + QB * CAP);
@@ -167,7 +187,8 @@ __device__ __forceinline__ Smem carve(unsigned char* smem, int d, int kc,
 }
 
 // Thread 0 sets up the barriers and starts the copies of the query tile
-// at qsrc and of the first stages; the caller then syncs the block.
+// at qsrc (none for a WIDE build: qsrc null) and of the first stages; the
+// caller then syncs the block.
 template <class Issue>
 __device__ __forceinline__ void ring_start(const Smem& m, const float* qsrc,
                                            int d, int nring, int stages,
@@ -176,9 +197,32 @@ __device__ __forceinline__ void ring_start(const Smem& m, const float* qsrc,
     for (int b = 0; b < nring; ++b) bar_init(m.full + b, 1), m.done[b] = 0;
     bar_init(m.qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (stages > 0) bulk_load(m.qs, qsrc, d * QB * 4, m.qbar);
+    if (stages > 0 && qsrc) bulk_load(m.qs, qsrc, d * QB * 4, m.qbar);
     for (int st = 0; st < nring && st < stages; ++st) issue(st);
   }
+}
+
+// Copy a stage into ring buffer b: the candidate tile's feature rows
+// [k0, k0 + len) from csrc and, in a WIDE build, the query tile's same
+// rows from qsrc, both on the buffer's barrier.
+template <bool WIDE>
+__device__ __forceinline__ void load_stage(const Smem& m, int b, int kc,
+                                           const float* qsrc,
+                                           const float* csrc, int len) {
+  if constexpr (WIDE) {
+    expect_bytes(m.full + b, len * (QB + CB) * 4);
+    bulk_copy(m.qs + b * kc * QB, qsrc, len * QB * 4, m.full + b);
+    bulk_copy(m.ring + b * kc * CB, csrc, len * CB * 4, m.full + b);
+  } else {
+    bulk_load(m.ring + b * kc * CB, csrc, len * CB * 4, m.full + b);
+  }
+}
+
+// The query tile's rows of the stage in buffer b, from feature row k0.
+template <bool WIDE>
+__device__ __forceinline__ const float* stage_queries(const Smem& m, int b,
+                                                      int kc, int k0) {
+  return WIDE ? m.qs + b * kc * QB : m.qs + k0 * QB;
 }
 
 // Stage s, in buffer b, is scored by this warp: the last warp done with
@@ -333,28 +377,47 @@ __device__ __noinline__ List<SL> merge_row(List<SL> l, const float* bv,
   return l;
 }
 
-// The same merge for a list in device memory: its k entries are loaded
-// into a List of SL slots (entries past k empty), merged and stored back.
-// The registers of the SL slots are live only in here.
+// The same merge for a list in device memory, slot by slot: each slot is
+// loaded, takes merge_list's step (keep the first 32 of itself and the
+// carry, pass the rest on) and is stored back, so only one slot and the
+// carry are in registers, whatever k.  The steps and their order are
+// merge_list's, so the list is the one a List would hold.  SL is unused.
 template <int SL>
 __device__ __noinline__ MemList merge_row(MemList l, const float* bv,
                                           const int* bi, int cnt, int k,
                                           int lane) {
-  List<SL> r;
+  __syncwarp();  // the buffer's writes are visible
+  float cv = lane < cnt ? bv[lane] : -CUDART_INF_F;
+  int ci = lane < cnt ? bi[lane] : NO_ID;
+  __syncwarp();  // read before the next appends overwrite it
 #pragma unroll
-  for (int w = 0; w < SL; ++w) {
-    const int jj = w * 32 + lane;
-    r.v[w] = jj < k ? l.v[jj] : -CUDART_INF_F;
-    r.id[w] = jj < k ? l.id[jj] : NO_ID;
-  }
-  merge_list<SL>(r, bv, bi, cnt, k, lane);
+  for (int size = 2; size <= 32; size <<= 1)
 #pragma unroll
-  for (int w = 0; w < SL; ++w) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+      exchange(cv, ci, lane, stride, (lane & size) == 0);
+  const int slots = (k + 31) / 32;
+  float last = 0.f;
+  int last_i = 0;
+  for (int w = 0; w < slots; ++w) {
     const int jj = w * 32 + lane;
-    if (jj < k) l.v[jj] = r.v[w], l.id[jj] = r.id[w];
+    float v = jj < k ? l.v[jj] : -CUDART_INF_F;
+    int id = jj < k ? l.id[jj] : NO_ID;
+    const float rv = __shfl_sync(FULL, cv, 31 - lane);  // ascending
+    const int ri = __shfl_sync(FULL, ci, 31 - lane);
+    const bool mine = before(v, id, rv, ri);
+    const float lo_v = mine ? rv : v;
+    const int lo_i = mine ? ri : id;
+    if (!mine) v = rv, id = ri;
+    bitonic_merge(v, id, lane);
+    if (w + 1 < slots) {
+      cv = lo_v, ci = lo_i;
+      bitonic_merge(cv, ci, lane);
+    }
+    if (jj < k) l.v[jj] = v, l.id[jj] = id;
+    if (w == slots - 1) last = v, last_i = id;
   }
-  l.tv = r.tv;
-  l.ti = r.ti;
+  l.tv = __shfl_sync(FULL, last, (k - 1) % 32);
+  l.ti = __shfl_sync(FULL, last_i, (k - 1) % 32);
   return l;
 }
 
@@ -539,23 +602,36 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   }
 }
 
-// Bytes of dynamic shared memory: the barriers, the query tile, the ring,
-// the row buffers and `extra` bytes of the kernel's own.
-inline size_t smem_bytes(int d, int kc, int nring, size_t extra) {
+// Feature rows of the query tile in shared memory: all d, or in a WIDE
+// build one stage's kc a ring buffer.
+__host__ __device__ __forceinline__ int query_rows(int d, int kc,
+                                                     int nring, bool wide) {
+  return wide ? nring * kc : d;
+}
+
+// Bytes of dynamic shared memory: the barriers, the query tile (qrows
+// feature rows), the ring, the row buffers and `extra` bytes of the
+// kernel's own.
+inline size_t smem_bytes(int qrows, int kc, int nring, size_t extra) {
   return BAR_BYTES + extra +
-         sizeof(float) * ((size_t)d * QB + (size_t)nring * kc * CB +
+         sizeof(float) * ((size_t)qrows * QB + (size_t)nring * kc * CB +
                           (size_t)2 * QB * CAP);
 }
 
 // Feature rows a stage holds: all d (up to KC) when two stages fit beside
 // the query tile, else halved until they do; then as many stages as fit,
 // up to RING_MAX.
-inline void stage_shape(int d, size_t extra, int* kc, int* nring) {
+inline void stage_shape(int d, size_t extra, bool wide, int* kc,
+                        int* nring) {
   int c = d < KC ? d : KC;
-  while (c > 1 && smem_bytes(d, c, 2, extra) > (size_t)SMEM_MAX)
+  while (c > 1 &&
+         smem_bytes(query_rows(d, c, 2, wide), c, 2, extra) >
+             (size_t)SMEM_MAX)
     c = (c + 1) / 2;
   int r = 2;
-  while (r < RING_MAX && smem_bytes(d, c, r + 1, extra) <= (size_t)SMEM_MAX)
+  while (r < RING_MAX &&
+         smem_bytes(query_rows(d, c, r + 1, wide), c, r + 1, extra) <=
+             (size_t)SMEM_MAX)
     ++r;
   *kc = c;
   *nring = r;
@@ -626,6 +702,46 @@ int layout(int* o, F16 k16, F32 k32) {
   o[8] = a32.numRegs;
   o[9] = (int)a32.localSizeBytes;
   return 0;
+}
+
+// The build that serves (k, d), for both kNN kernels: launch(K, WIDE)
+// is called with K and WIDE as std::integral_constant / bool_constant.
+// K is the smallest register list that holds k, else K_MEM; WIDE when
+// rows are wider than D_RESIDENT.  The WIDE builds come in three list
+// sizes only, to keep the build short: the list size changes the time,
+// never the result.
+template <int K>
+using ListK = std::integral_constant<int, K>;
+
+template <class F>
+cudaError_t by_shape(int k, int d, F launch) {
+  using W = std::bool_constant<true>;
+  using R = std::bool_constant<false>;
+  if (d > D_RESIDENT) {
+    if (k <= 32) return launch(ListK<32>{}, W{});
+    if (k <= K_REG) return launch(ListK<K_REG>{}, W{});
+    return launch(ListK<K_MEM>{}, W{});
+  }
+  if (k <= 16) return launch(ListK<16>{}, R{});
+  if (k <= 32) return launch(ListK<32>{}, R{});
+  if (k <= 64) return launch(ListK<64>{}, R{});
+  if (k <= 128) return launch(ListK<128>{}, R{});
+  if (k <= K_REG) return launch(ListK<K_REG>{}, R{});
+  return launch(ListK<K_MEM>{}, R{});
+}
+
+// out[0..3] of a build entry point: the list size and WIDE of the build
+// `kern`, then the registers and local bytes a thread it takes.
+template <class F>
+cudaError_t build_of(int* o, F kern, int K, bool wide) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return e;
+  o[0] = K;
+  o[1] = wide;
+  o[2] = a.numRegs;
+  o[3] = (int)a.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace

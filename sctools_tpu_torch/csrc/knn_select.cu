@@ -65,12 +65,17 @@
 //   * Above K_REG (256) entries the lists leave the registers: RW lists
 //     of 512 would take 256 registers a lane.  A row's list then waits in
 //     its k slots of the split's output (MemList), in the same order, and
-//     only its threshold stays in registers; a merge loads it, merges and
-//     stores it (merge_row<SL>(MemList)), so its registers are live only
-//     there.  A merge then moves 8 k bytes each way through the caches;
-//     rows past nq get a threshold nothing passes, so they never merge
-//     and write nothing.  The tile loop, the filter and the merges are the
+//     only its threshold stays in registers; a merge streams it slot by
+//     slot (merge_row<SL>(MemList)), so one build (K_MEM) serves any k.
+//     A merge then moves 8 k bytes each way through the caches; rows past
+//     nq get a threshold nothing passes, so they never merge and write
+//     nothing.  The tile loop, the filter and the merge steps are the
 //     register lists', so the order and the result are the same.
+//   * Rows of more than D_RESIDENT features (the WIDE builds): the query
+//     tile no longer stays resident, and each stage carries the query
+//     tile's kc feature rows beside the candidate tile's, on the same
+//     barrier.  The stages of a tile add into the same cells in feature
+//     order, so each score is the same fmaf chain, any d.
 //   * Splits.  Each (query tile, split) block writes its k best to a
 //     scratch buffer (SPLITS, nq, k); knn_merge_kernel merges the SPLITS
 //     sorted lists of each query.  The splits cover ascending id ranges,
@@ -89,7 +94,7 @@
 
 namespace {
 
-template <int K>
+template <int K, bool WIDE>
 __global__ void __launch_bounds__(THREADS, KNN_MINB)
     knn_select_kernel(const float* __restrict__ qP,
                       const float* __restrict__ cP,
@@ -100,7 +105,7 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   constexpr int SL = (K + 31) / 32;  // list slots a lane
   constexpr bool IN_MEMORY = K > K_REG;  // the lists wait in device memory
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem m = carve(smem, d, kc, nring);
+  const Smem m = carve(smem, query_rows(d, kc, nring, WIDE), kc, nring);
   const bool euclid = qn != nullptr;
 
   const int tid = threadIdx.x;
@@ -115,14 +120,14 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   const int warp = tid >> 5, lane = tid & 31;
   // Stage s of the sweep: tile t_begin + s / chunks, feature rows from
   // (s % chunks) * kc, into ring buffer s % nring.
+  const float* qtile = qP + (int64_t)blockIdx.x * d * QB;
   auto issue = [&](int st) {
     const int k0 = st % chunks * kc;
-    const int b = st % nring;
-    bulk_load(m.ring + b * kc * CB,
-              cP + ((int64_t)(t_begin + st / chunks) * d + k0) * CB,
-              min(kc, d - k0) * CB * 4, m.full + b);
+    load_stage<WIDE>(m, st % nring, kc, qtile + (int64_t)k0 * QB,
+                     cP + ((int64_t)(t_begin + st / chunks) * d + k0) * CB,
+                     min(kc, d - k0));
   };
-  ring_start(m, qP + (int64_t)blockIdx.x * d * QB, d, nring, stages, issue);
+  ring_start(m, WIDE ? nullptr : qtile, d, nring, stages, issue);
   __syncthreads();
   const int g = lane >> 4;                     // which row of each pair
   const int r0 = warp * RW + 4 * g;            // rows r0 + 8h + i
@@ -168,13 +173,13 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   int t = t_begin, j = 0;  // the stage being scored: tile t, chunk j
 
-  if (stages > 0) bar_wait(m.qbar, 0);
+  if (stages > 0 && !WIDE) bar_wait(m.qbar, 0);
   for (int s = 0; s < stages; ++s) {
     const int b = s % nring;
     bar_wait(m.full + b, (s / nring) & 1);  // stage s is in
     const int k0 = j * kc;
-    score_stage(acc, m.qs + k0 * QB, m.ring + b * kc * CB, min(kc, d - k0),
-                r0, c0l);
+    score_stage(acc, stage_queries<WIDE>(m, b, kc, k0), m.ring + b * kc * CB,
+                min(kc, d - k0), r0, c0l);
     release(m.done, b, s, nring, stages, lane, issue);
     if (++j < chunks) continue;
 
@@ -261,14 +266,15 @@ __global__ void __launch_bounds__(THREADS, KNN_MINB)
   }
 }
 
-template <int K>
+template <int K, bool WIDE>
 cudaError_t launch(const float* qP, const float* cP, int nq, int nc, int d,
                    int k, int euclid, int exclude_self, float* out_v,
                    int* out_i, float* scratch, cudaStream_t stream) {
   int kc, nring;
-  stage_shape(d, 0, &kc, &nring);
-  const size_t smem = smem_bytes(d, kc, nring, 0);
-  auto kern = knn_select_kernel<K>;
+  stage_shape(d, 0, WIDE, &kc, &nring);
+  const size_t smem =
+      smem_bytes(query_rows(d, kc, nring, WIDE), kc, nring, 0);
+  auto kern = knn_select_kernel<K, WIDE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -295,8 +301,8 @@ extern "C" {
 // out[8] / out[9] at K = 32.  Returns the cudaFuncGetAttributes error
 // (0 on success).
 int sct_knn_select_layout(void* out) {
-  return layout(static_cast<int*>(out), knn_select_kernel<16>,
-                knn_select_kernel<32>);
+  return layout(static_cast<int*>(out), knn_select_kernel<16, false>,
+                knn_select_kernel<32, false>);
 }
 
 // q and c packed tile-major as float (pack_tiles in ops/knn_kernel.py):
@@ -304,13 +310,14 @@ int sct_knn_select_layout(void* out) {
 // i] = row t * W + i, feature kk, zero past the rows; out_v (nq, k) float
 // and out_i (nq, k) int32; scratch of 2 * SPLITS * nq * k floats (split
 // values, then int32 ids; none when SPLITS == 1), then for euclid
-// round_up(nq, QB) + round_up(nc, CB) floats (the squared norms).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// round_up(nq, QB) + round_up(nc, CB) floats (the squared norms).  Any
+// d >= 1 (above D_RESIDENT the WIDE build) and any k >= 1 (above K_REG
+// the lists in device memory).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 int sct_knn_select(const void* q, const void* c, int nq, int nc, int d,
                    int k, int euclid, int exclude_self, void* out_v,
                    void* out_i, void* scratch, void* stream) {
-  if (nq < 0 || nc < 0 || d < 1 || d > D_MAX || k < 1 || k > K_MAX)
-    return (int)cudaErrorInvalidValue;
+  if (nq < 0 || nc < 0 || d < 1 || k < 1) return (int)cudaErrorInvalidValue;
   if (nq == 0) return 0;
   const float* qP = static_cast<const float*>(q);
   const float* cP = static_cast<const float*>(c);
@@ -318,23 +325,23 @@ int sct_knn_select(const void* q, const void* c, int nq, int nc, int d,
   int* oi = static_cast<int*>(out_i);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 16)
-    return (int)launch<16>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov, oi,
-                           sc, s);
-  if (k <= 32)
-    return (int)launch<32>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov, oi,
-                           sc, s);
-  if (k <= 64)
-    return (int)launch<64>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov, oi,
-                           sc, s);
-  if (k <= 128)
-    return (int)launch<128>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov,
-                            oi, sc, s);
-  if (k <= 256)
-    return (int)launch<256>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov,
-                            oi, sc, s);
-  return (int)launch<512>(qP, cP, nq, nc, d, k, euclid, exclude_self, ov, oi,
-                          sc, s);
+  return (int)by_shape(k, d, [&](auto K, auto WIDE) {
+    return launch<decltype(K)::value, decltype(WIDE)::value>(
+        qP, cP, nq, nc, d, k, euclid, exclude_self, ov, oi, sc, s);
+  });
+}
+
+// The build a search at (k, d) launches (by_shape): out[0] its list
+// size, out[1] 1 when WIDE, out[2] / out[3] the registers and local
+// memory bytes a thread.  Returns the cudaFuncGetAttributes error.
+int sct_knn_select_build(int k, int d, void* out) {
+  if (d < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  return (int)by_shape(k, d, [&](auto K, auto WIDE) {
+    return build_of(o, knn_select_kernel<decltype(K)::value,
+                                         decltype(WIDE)::value>,
+                    K, WIDE);
+  });
 }
 
 const char* sct_cuda_error_string(int code) {

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel sctools_tpu/ops/pallas_graph.py:_tsne_rep_kernel
 // (its pallas_call at :587, reached from tsne_repulsion at :607).
 //
-// What it computes, for y (n, D) float row-major with D <= D_MAX and
-// every pair i != j of its rows:
+// What it computes, for y (n, D) float row-major (any D >= 1) and every
+// pair i != j of its rows:
 //   w_ij      = 1 / (1 + |y_i - y_j|^2)
 //   forces[i] = sum_j w_ij^2 (y_i - y_j)
 //   zrow[i]   = sum_j w_ij
@@ -46,6 +46,17 @@
 //   third level, keep the f32 error near that of a blocked sum, not of
 //   one sequential sum over n terms.
 //
+// D > D_REG (embed.tsne's n_components above 4): tsne_wide_kernel, one
+// query a thread with D a runtime size.  No coordinate is held in
+// registers: the query's and the candidates' are read where they lie
+// (every thread of a block reads the same candidate, one cached
+// broadcast), and the running sums are kept in the split's own partial
+// sums.  For each tile of TILE candidates it walks the coordinates four
+// at a time, recomputing each pair's w (the same operations, so the same
+// bits) and summing those four coordinates of w^2 dx over the tile in
+// candidate order; the tile's sums then add into the running ones.  So
+// the summation has the same three levels as above, any D.
+//
 // Bound on an H100, as the repository counts it: the operations the
 // function needs on the CUDA cores, 5D + 3 per pair with an fma as 2 (D
 // subs, D fmas for den, the reciprocal, w^2, the z add, D fmas for the
@@ -60,7 +71,7 @@
 
 namespace {
 
-constexpr int D_MAX = 4;
+constexpr int D_REG = 4;       // most coordinates held in registers
 constexpr int THREADS = 128;  // threads a block
 constexpr int QPT = 3;        // query rows a thread
 constexpr int TILE = 256;     // candidate rows staged a tile
@@ -197,6 +208,51 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
+// D > D_REG: query i = blockIdx.x * THREADS + threadIdx.x against the
+// candidates [s * span, min((s + 1) * span, n)) of split s =
+// blockIdx.y, D = dim; writes the split's partial sums to part (splits,
+// dim + 1, n) and keeps its running force sums there.
+__global__ void __launch_bounds__(THREADS)
+    tsne_wide_kernel(const float* __restrict__ y, int n, int dim, int span,
+                     float* __restrict__ part) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;  // no block barrier below
+  const int64_t begin64 = (int64_t)blockIdx.y * span;
+  const int c_begin = (int)(begin64 < n ? begin64 : n);
+  const int c_end = (int)(begin64 + span < n ? begin64 + span : n);
+  const float* q = y + (int64_t)i * dim;
+  float* p = part + (int64_t)blockIdx.y * (dim + 1) * n + i;
+  for (int dd = 0; dd < dim; ++dd) p[(int64_t)dd * n] = 0.f;
+  float z = 0.f;
+  for (int c0 = c_begin; c0 < c_end; c0 += TILE) {
+    const int c1 = min(c0 + TILE, c_end);
+    float tz = 0.f;
+    for (int e0 = 0; e0 < dim; e0 += 4) {
+      float tacc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = c0; j < c1; ++j) {
+        const float* c = y + (int64_t)j * dim;
+        float den = 1.f;
+        for (int dd = 0; dd < dim; ++dd) {
+          const float dx = q[dd] - c[dd];
+          den = fmaf(dx, dx, den);
+        }
+        float w = rcp_approx(den);
+        if (j == i) w = 0.f;
+        const float w2 = w * w;
+        if (e0 == 0) tz += w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e0 + e < dim) tacc[e] = fmaf(w2, q[e0 + e] - c[e0 + e], tacc[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e0 + e < dim) p[(int64_t)(e0 + e) * n] += tacc[e];
+    }
+    z += tz;
+  }
+  p[(int64_t)dim * n] = z;
+}
+
 // forces and zrow from the partial sums, split 0 first.
 template <int D>
 __global__ void __launch_bounds__(COMBINE_THREADS)
@@ -216,6 +272,40 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
 #pragma unroll
   for (int dd = 0; dd < D; ++dd) forces[(int64_t)i * D + dd] = acc[dd];
   zrow[i] = z;
+}
+
+// tsne_combine_kernel for D = dim > D_REG, a coordinate at a time.
+__global__ void __launch_bounds__(COMBINE_THREADS)
+    tsne_combine_wide_kernel(const float* __restrict__ part, int n, int dim,
+                             int splits, float* __restrict__ forces,
+                             float* __restrict__ zrow) {
+  const int i = blockIdx.x * COMBINE_THREADS + threadIdx.x;
+  if (i >= n) return;
+  for (int dd = 0; dd <= dim; ++dd) {
+    float a = 0.f;
+    for (int s = 0; s < splits; ++s)
+      a += part[((int64_t)s * (dim + 1) + dd) * n + i];
+    if (dd < dim)
+      forces[(int64_t)i * dim + dd] = a;
+    else
+      zrow[i] = a;
+  }
+}
+
+// Both launches of a D > D_REG input, `splits` candidate spans.
+cudaError_t launch_wide(const float* y, int n, int dim, int splits,
+                        float* part, float* forces, float* zrow,
+                        cudaStream_t stream) {
+  const int per_split = (n + splits - 1) / splits;
+  const int span = (per_split + TILE - 1) / TILE * TILE;
+  const dim3 grid((n + THREADS - 1) / THREADS, splits);
+  tsne_wide_kernel<<<grid, THREADS, 0, stream>>>(y, n, dim, span, part);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tsne_combine_wide_kernel<<<(n + COMBINE_THREADS - 1) / COMBINE_THREADS,
+                             COMBINE_THREADS, 0, stream>>>(
+      part, n, dim, splits, forces, zrow);
+  return cudaGetLastError();
 }
 
 // Both launches at the given sizes; `part` holds splits * (D + 1) * n
@@ -254,17 +344,19 @@ int sct_tsne_repulsion_layout(void* out) {
 }
 
 // y (n, dim) float row-major, forces (n, dim) float, zrow (n,) float,
-// scratch (SPLITS, dim + 1, n) float.  Launches on `stream` and returns
+// scratch (SPLITS, dim + 1, n) float; any dim >= 1 (above D_REG
+// tsne_wide_kernel).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 int sct_tsne_repulsion(const void* y, int n, int dim, void* forces,
                        void* zrow, void* scratch, void* stream) {
-  if (n < 0 || dim < 1 || dim > D_MAX) return (int)cudaErrorInvalidValue;
+  if (n < 0 || dim < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const float* yp = static_cast<const float*>(y);
   float* fp = static_cast<float*>(forces);
   float* zp = static_cast<float*>(zrow);
   float* sp = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim > D_REG) return (int)launch_wide(yp, n, dim, SPLITS, sp, fp, zp, s);
   switch (dim) {
     case 1:
       return (int)launch_sized<1, THREADS, QPT, TILE>(yp, n, SPLITS, sp, fp,

@@ -33,9 +33,11 @@ _SIGNATURES = {
     "sct_knn_select": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
                        _I),
     "sct_knn_select_layout": ([_P], _I),
+    "sct_knn_select_build": ([_I, _I, _P], _I),
     "sct_knn_binned": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P], _I),
     "sct_knn_binned_layout": ([_P], _I),
+    "sct_knn_binned_build": ([_I, _I, _P], _I),
     "sct_graph_matvec": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
     "sct_graph_rmatvec": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "sct_graph_jaccard": ([_P, _I, _I, _P, _P], _I),

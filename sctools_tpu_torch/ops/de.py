@@ -45,6 +45,7 @@ from ..data.dataset import CellData
 from ..data.sparse import (SparseCells, dense_gene_block, gene_slots,
                            gene_slots_sum, spmm)
 from ..registry import register
+from ..utils.optim import adam_step_all, bias_corrections
 from .cluster import _segment_sum, segment_order
 from .graph import _host
 from .qc import _matrix_X
@@ -303,17 +304,6 @@ def logreg_w0(n_genes: int, n_groups: int, seed: int, device
     return (1e-3 * w).to(device)
 
 
-def _adam_step(p, g, m, v, t: int, lr: float, b1: float = 0.9,
-               b2: float = 0.999, eps: float = 1e-8):
-    """One step of ``optax.adam(lr)`` (its defaults, in its order of
-    operations): returns the new (p, m, v)."""
-    m = (1 - b1) * g + b1 * m
-    v = (1 - b2) * (g * g) + b2 * v
-    m_hat = m / torch.tensor(1 - b1 ** t, dtype=m.dtype)
-    v_hat = v / torch.tensor(1 - b2 ** t, dtype=v.dtype)
-    return p + (-lr) * (m_hat / (torch.sqrt(v_hat) + eps)), m, v
-
-
 _LOGREG_L2, _LOGREG_LR = 1e-4, 0.1  # the reference's defaults
 
 
@@ -327,8 +317,9 @@ def _logreg_scores(X, grp: _Groups, n_genes: int, n_steps: int = 300,
     stored slots."""
     n, G = grp.n, grp.n_groups
     dev = grp.onehot.device
+    # updated in place: a copy, never the caller's w0
     W = (logreg_w0(n_genes, G, 0, dev) if w0 is None
-         else w0.to(dev, torch.float32))
+         else w0.to(dev, torch.float32).clone())
     b = torch.zeros((G,), dtype=torch.float32, device=dev)
     mW, vW = torch.zeros_like(W), torch.zeros_like(W)
     mb, vb = torch.zeros_like(b), torch.zeros_like(b)
@@ -341,8 +332,8 @@ def _logreg_scores(X, grp: _Groups, n_genes: int, n_steps: int = 300,
                   else grp.dense.T @ R)
         gW = gW + 2.0 * _LOGREG_L2 * W
         gb = R.sum(dim=0)
-        W, mW, vW = _adam_step(W, gW, mW, vW, t, _LOGREG_LR)
-        b, mb, vb = _adam_step(b, gb, mb, vb, t, _LOGREG_LR)
+        adam_step_all([W, b], [gW, gb], [mW, mb], [vW, vb],
+                      bias_corrections(t), _LOGREG_LR)
     return _host(W).T
 
 

@@ -23,6 +23,12 @@ a CPU tensor, the kernel for a CUDA tensor (or it raises).  There is no
 fallback from a kernel to its plain version, and each wrapper counts
 its kernel launches in ``.launches``.
 
+The kernels take any k and any t-SNE dim, as the reference does; the C
+entry points choose the build by shape: Jaccard stages a row's list in
+shared memory up to k = 256 and reads it where it lies above; the
+repulsion holds up to 4 coordinates in registers and takes a
+runtime-dim kernel above (``csrc/tsne_repulsion.cu``).
+
 The CUDA kernels gather rows directly, so they need no band:
 ``band_rows`` (the bandwidth ``graph.reorder`` records) is accepted for
 signature parity with the reference and unused.  The layout still
@@ -39,12 +45,6 @@ import torch
 from .. import cuda_build
 from ..config import config, true_f32
 
-# Limits of the kernels (csrc/*.cu K_MAX, D_MAX); the wrappers raise
-# past them on every device so both versions take the same inputs.
-K_MAX = 256
-TSNE_D_MAX = 4
-
-
 def _check_edges(knn_idx: torch.Tensor, weights: torch.Tensor | None = None
                  ) -> None:
     config.resolved_graph_impl()
@@ -53,11 +53,10 @@ def _check_edges(knn_idx: torch.Tensor, weights: torch.Tensor | None = None
     if knn_idx.dtype not in (torch.int32, torch.int64):
         raise ValueError(
             f"knn_idx must be int32 or int64, not {knn_idx.dtype}")
-    if not 1 <= knn_idx.shape[1] <= K_MAX:
-        raise ValueError(
-            f"k={knn_idx.shape[1]} outside 1..{K_MAX} (the kernels' K_MAX)")
-    if knn_idx.shape[0] >= 2 ** 31:
-        raise ValueError("more than 2**31 - 1 rows (int32 ids)")
+    if knn_idx.shape[1] < 1:
+        raise ValueError("knn_idx has no slot (k = 0)")
+    if max(knn_idx.shape) >= 2 ** 31:
+        raise ValueError("more than 2**31 - 1 rows or slots (int32 ids)")
     if weights is not None:
         if weights.shape != knn_idx.shape:
             raise ValueError(
@@ -346,7 +345,7 @@ def jaccard_plain(knn_idx: torch.Tensor, block: int = 1024) -> torch.Tensor:
 def tsne_repulsion(y: torch.Tensor, n: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact t-SNE repulsion over the first ``n`` rows of ``y``
-    (≥ n, dim ≤ 4) float32: ``(forces (n, dim), Z)`` with ``w_ij =
+    (≥ n, any dim) float32: ``(forces (n, dim), Z)`` with ``w_ij =
     1/(1 + ‖y_i − y_j‖²)`` for j ≠ i, ``forces_i = y_i·Σ_j w_ij² −
     Σ_j w_ij²·y_j`` and ``Z = max(Σ_ij w_ij, 1e-12)``.  The kernel sums
     ``w_ij²·(y_i − y_j)`` over the differences themselves; the plain
@@ -354,10 +353,9 @@ def tsne_repulsion(y: torch.Tensor, n: int
     max(‖y_i‖² − 2 y_i·y_j + ‖y_j‖², 0)``.  CPU tensors go to
     ``tsne_repulsion_plain``."""
     config.resolved_graph_impl()
-    if y.ndim != 2 or not 1 <= y.shape[1] <= TSNE_D_MAX:
+    if y.ndim != 2 or y.shape[1] < 1:
         raise ValueError(
-            f"y must be (rows, dim) with 1 <= dim <= {TSNE_D_MAX} (the "
-            f"kernel's D_MAX), got {tuple(y.shape)}")
+            f"y must be (rows, dim) with dim >= 1, got {tuple(y.shape)}")
     if not 0 <= n <= y.shape[0] or n >= 2 ** 31:
         raise ValueError(f"n={n} outside 0..{y.shape[0]} rows of y")
     if not _kernel_device(y, "tsne_repulsion"):

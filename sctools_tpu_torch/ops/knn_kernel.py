@@ -14,6 +14,21 @@ with no finite candidate hold ``-inf`` and id ``-1``.
 Each wrapper picks by the tensor's device alone: the plain
 version for a CPU tensor, the kernel for a CUDA tensor (or it raises).
 There is no fallback from the kernel to the plain version.
+
+Both kernels take any ``k ≥ 1`` and any width ``d ≥ 1``, as the
+reference does (it pads k and d to the lane and sets no cap); both C
+entry points choose the build by shape through one rule
+(``csrc/knn_core.cuh`` ``by_shape``, read back by ``knn_select_build``
+/ ``knn_binned_build``):
+
+* ``k ≤ 256`` keeps each query's list in the warp's registers (builds
+  for k ≤ 16, 32, 64, 128, 256); above it one build keeps the lists in
+  device memory at the rows' output slots and merges them slot by slot,
+  with no upper bound (``csrc/knn_core.cuh`` ``MemList``);
+* ``d ≤ 256`` keeps a block's query tile resident in shared memory;
+  wider rows take the WIDE builds, whose stages carry the query tile's
+  feature rows beside the candidates'.  Every score is the same fmaf
+  chain over the features either way, so the choice moves no bit.
 """
 
 from __future__ import annotations
@@ -24,14 +39,6 @@ import torch
 
 from .. import cuda_build
 from ..config import config, round_up, true_f32
-
-# Limits of the kernels (csrc/knn_core.cuh K_MAX, D_MAX); the wrapper
-# raises past them on every device so both versions take the same
-# inputs.  Lists of more than 256 entries wait in device memory between
-# merges (knn_core.cuh MemList).
-K_MAX = 512
-D_MAX = 256
-
 
 def _check(q: torch.Tensor, c: torch.Tensor, k: int, metric: str) -> None:
     if metric not in ("cosine", "euclidean"):
@@ -46,13 +53,11 @@ def _check(q: torch.Tensor, c: torch.Tensor, k: int, metric: str) -> None:
         raise ValueError(
             f"q and c must share dtype float32 or bfloat16, got {q.dtype} "
             f"and {c.dtype}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k={k} outside 1..{K_MAX} (the kernel's K_MAX)")
-    if not 1 <= q.shape[1] <= D_MAX:
-        raise ValueError(
-            f"d={q.shape[1]} outside 1..{D_MAX} (the kernel stages whole "
-            "rows in shared memory)")
-    if max(q.shape[0], c.shape[0]) >= 2 ** 31:
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
+    if q.shape[1] < 1:
+        raise ValueError("rows of no feature")
+    if max(q.shape[0], c.shape[0], k) >= 2 ** 31:
         raise ValueError("more than 2**31 - 1 rows (int32 ids)")
 
 
@@ -115,6 +120,27 @@ def knn_binned_layout() -> dict:
     of ``knn_select_layout``; ``splits`` is the most bin-chunk splits
     (a launch takes ``min(splits, n_bins / cand_tile)``)."""
     return _layout("sct_knn_binned_layout")
+
+
+def _build(entry: str, k: int, d: int) -> dict:
+    out = (ctypes.c_int * 4)()
+    code = getattr(cuda_build.library(), entry)(k, d, ctypes.addressof(out))
+    cuda_build.check(code, entry)
+    return {"list_size": out[0], "wide": bool(out[1]),
+            "registers": out[2], "local_bytes": out[3]}
+
+
+def knn_select_build(k: int, d: int) -> dict:
+    """The build of ``csrc/knn_select.cu`` that a search at (k, d)
+    launches, chosen as the launch chooses it (``by_shape`` in
+    ``knn_core.cuh``): its ``list_size``, ``wide``, and the
+    ``registers`` and ``local_bytes`` a thread of it takes."""
+    return _build("sct_knn_select_build", k, d)
+
+
+def knn_binned_build(k: int, d: int) -> dict:
+    """``knn_select_build`` for ``csrc/knn_binned.cu``."""
+    return _build("sct_knn_binned_build", k, d)
 
 
 def _packed_launch(entry: str, layout: dict, q: torch.Tensor,

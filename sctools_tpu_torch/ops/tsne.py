@@ -162,7 +162,7 @@ def tsne(data: CellData, n_components: int = 2, perplexity: float = 30.0,
          n_iter: int = 500, learning_rate: float = 200.0, seed: int = 0,
          device=None) -> CellData:
     """t-SNE of the kNN graph (requires ``neighbors.knn``).  Adds obsm
-    ``X_tsne`` (n, n_components ≤ 4) and uns ``tsne_perplexity`` (the
+    ``X_tsne`` (n, n_components) and uns ``tsne_perplexity`` (the
     perplexity used).  The initial layout is ``1e-4 ×`` standard normal
     draws of numpy's ``default_rng(seed)``, as in the reference."""
     if "knn_indices" not in data.obsp:

@@ -19,7 +19,11 @@ Step 2 runs on the card as min-plus Bellman–Ford over the symmetrised
 edge list (``velocity._sym_pairs``, the reference's ``_sym_edges``):
 ``D ← min(D, min_j D[nbr_j] + w_j)``, for 32 waypoints at a time.  A
 sweep gathers ``D`` at each edge's target and takes the minimum per
-source with ``scatter_reduce("amin")`` (exact in any order), so its
+source with ``scatter_reduce("amin")`` (exact in any order), in
+float64 as scipy's ``dijkstra`` sums (each path summed from its source
+outwards in both, so the card's distances are the CPU's: in float32 a
+difference of 1e-7 moved a near-tie of the trajectory's refinement and
+the trajectory by 1.5 % of its range), so its
 cost follows the edges, not the reference's padding of every row to
 the largest degree (a hub of the symmetrised main graph made that
 padded gather take 30 s a run on the card).  A round is 128 sweeps
@@ -75,7 +79,7 @@ def minplus_round(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     ``changed`` a device bool, True when the last sweep still lowered a
     distance.  A sweep advances every frontier one hop."""
     index = src[:, None].expand(-1, D.shape[1])
-    wcol = w.float()[:, None]
+    wcol = w.to(D.dtype)[:, None]
     changed = torch.ones((), dtype=torch.bool, device=D.device)
     for _ in range(sweeps):
         Dn = D.scatter_reduce(0, index, D[dst] + wcol, "amin")
@@ -102,14 +106,14 @@ def minplus_distances(idx2: torch.Tensor, w2: torch.Tensor,
         pad = min(_WCHUNK, len(sources) - lo)
         chunk = np.full(_WCHUNK, int(sources[0]), np.int64)
         chunk[:pad] = sources[lo:lo + pad]
-        D = torch.full((n, _WCHUNK), _INF, dtype=torch.float32, device=dev)
+        D = torch.full((n, _WCHUNK), _INF, dtype=torch.float64, device=dev)
         D[torch.from_numpy(chunk).to(dev),
           torch.arange(_WCHUNK, device=dev)] = 0.0
         for _ in range(-(-max(n - 1, 1) // _SWEEPS)):
             D, changed = minplus_round(src, dst, w, D)
             if not bool(changed):
                 break
-        out.append(_host(D[:, :pad]).astype(np.float64))
+        out.append(_host(D[:, :pad]))
     return np.concatenate(out, axis=1)
 
 

@@ -200,10 +200,11 @@ def test_doublet_validates(doublet_data):
 
 
 @pytest.mark.parametrize("k,metric", [(300, "euclidean"), (393, "euclidean"),
-                                      (393, "cosine")])
+                                      (393, "cosine"), (600, "euclidean")])
 def test_knn_select_plain_at_large_k(k, metric):
     """The plain version of the exact kernel at k above the register
-    lists' 256, self excluded, against the float64 oracle."""
+    lists' 256 (600: past the former cap of 512, the doublet search's
+    k_adj at k = 200), self excluded, against the float64 oracle."""
     rng = np.random.default_rng(k)
     x = rng.normal(size=(700, 12)).astype(np.float32)
     q = torch.from_numpy(x)
@@ -218,5 +219,3 @@ def test_knn_select_plain_at_large_k(k, metric):
     np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-5)
     assert recall_at_k(ids.numpy(), want_i) >= 0.999
     assert not (ids.numpy() == np.arange(700)[:, None]).any()
-    with pytest.raises(ValueError, match="K_MAX"):
-        knn_kernel.knn_select(q, q, k=knn_kernel.K_MAX + 1, metric=metric)

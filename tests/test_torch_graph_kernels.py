@@ -278,6 +278,40 @@ def test_jaccard_at_each_kernel_width_matches_pallas_kernel(n, k):
     assert (out[idx < 0] == 0).all()
 
 
+@pytest.mark.parametrize("op", ["matvec", "rmatvec"])
+def test_gathers_past_the_former_cap_match_pallas_kernel(op):
+    """k = 300 slots a row, past the former cap of 256 (the reference
+    sets none): both gathers against the reference's Pallas kernels,
+    each output within 1e-5 of the sum of its terms' magnitudes (float32
+    sums of 300 terms in another order; 1e-6 absolute, as at k = 11,
+    is below their rounding)."""
+    idx, w, x = _graph(n=320, k=300, d=8, seed=30)
+    with ref_configure(graph_impl="pallas"):
+        ref = np.asarray(getattr(PG, op)(jnp.asarray(idx), jnp.asarray(w),
+                                         jnp.asarray(x), block=64))
+    out = getattr(GK, op)(*_t(idx, w, x)).numpy()
+    scale = getattr(GK, op + "_plain")(*_t(idx, np.abs(w), np.abs(x)))
+    assert out.shape == (320, 8)
+    assert (np.abs(out - ref) <= 1e-5 * scale.numpy() + 1e-7).all()
+
+
+def test_jaccard_past_the_former_cap_matches_reference():
+    """k = 260, past the former cap of 256 (the kernel then reads a
+    row's own list where it lies), with padding and duplicates, against
+    the reference's ``jaccard(block=8)`` on the CPU (its blocked-XLA
+    twin; the Pallas kernel in interpret mode takes minutes at this k)
+    bit for bit."""
+    n, k = 300, 260
+    rng = np.random.default_rng(k)
+    idx = rng.integers(0, n, (n, k)).astype(np.int32)
+    idx[rng.random((n, k)) < 0.1] = -1
+    idx[::7, 1] = idx[::7, 0]
+    idx[::11, :] = -1
+    ref = np.asarray(PG.jaccard(jnp.asarray(idx), block=8))
+    out = GK.jaccard(torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
 # ----------------------------------------------------- t-SNE repulsion
 
 
@@ -377,7 +411,7 @@ def test_wrappers_raise_on_other_devices_and_impls():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(k=GK.K_MAX + 1), dict(dim=GK.TSNE_D_MAX + 1),
+    dict(k=0), dict(dim=0),
     dict(idx_dtype=torch.float32), dict(w_shape=(8, 2))])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     k = bad.get("k", 3)

@@ -203,7 +203,7 @@ def test_graph_kernel_wrapper_has_no_exception_handler(name):
     "velocity.latent_time", "de.rank_genes_groups",
     "de.filter_rank_genes_groups", "score.genes", "score.cell_cycle",
     "metrics.morans_i", "metrics.gearys_c", "integrate.combat",
-    "integrate.harmony", "integrate.mnn"])
+    "integrate.harmony", "integrate.mnn", "model.scvi", "model.scanvi"])
 def test_graph_ops_default_to_the_card_and_raise_without_one(op):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: None resolves to it")
@@ -231,6 +231,8 @@ def test_concat_and_the_new_modules_load_no_jax_and_no_reference():
         "from sctools_tpu_torch import concat, from_dense, from_scipy\n"
         "import sctools_tpu_torch.ops.integrate, sctools_tpu_torch.ops.mnn\n"
         "import sctools_tpu_torch.ops.ingest\n"
+        "import sctools_tpu_torch.models, sctools_tpu_torch.models.scvi\n"
+        "import sctools_tpu_torch.utils.optim\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'sctools_tpu' or "
         "m.startswith('sctools_tpu.'))\n"
@@ -258,14 +260,32 @@ def test_wrapper_dispatches_by_device_and_counts_only_launches():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(k=0), dict(k=knn_kernel.K_MAX + 1), dict(d=knn_kernel.D_MAX + 1),
-    dict(dtype=torch.float64), dict(metric="manhattan")])
+    dict(k=0), dict(dtype=torch.float64), dict(metric="manhattan")])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    d = bad.get("d", 8)
-    q = torch.zeros((4, d), dtype=bad.get("dtype", torch.float32))
+    q = torch.zeros((4, 8), dtype=bad.get("dtype", torch.float32))
     with pytest.raises(ValueError):
         knn_kernel.knn_select(q, q, k=bad.get("k", 2),
                               metric=bad.get("metric", "cosine"))
+
+
+@pytest.mark.parametrize("n,d,k", [(700, 20, 600), (300, 300, 20)])
+def test_knn_answers_past_the_former_caps(n, d, k):
+    """The shapes the kernels once refused (k above 512, rows wider
+    than 256 features) answer, as the reference does: ``knn_arrays`` on
+    the CPU against the float64 oracle (distances within 1e-5, ids
+    equal but on near-ties)."""
+    from sctools_tpu_torch.ops.knn import knn_arrays, knn_numpy, recall_at_k
+
+    x = np.random.default_rng(k).normal(size=(n, d)).astype(np.float32)
+    t = torch.from_numpy(x)
+    idx, dist = knn_arrays(t, t, k=k, metric="euclidean",
+                           exclude_self=True)
+    want_i, want_d = knn_numpy(x, x, k=k, metric="euclidean",
+                               exclude_self=True)
+    assert idx[:n].shape == (n, k)
+    np.testing.assert_allclose(dist[:n].numpy(), want_d, rtol=1e-5,
+                               atol=1e-5)
+    assert recall_at_k(idx[:n].numpy(), want_i) >= 0.999
 
 
 def test_registry_is_separate_from_the_reference():
@@ -283,7 +303,8 @@ def test_registry_is_separate_from_the_reference():
         "impute.magic", "integrate.combat", "integrate.harmony",
         "integrate.ingest", "integrate.mnn",
         "metacells.aggregate", "metacells.seacells", "metrics.gearys_c",
-        "metrics.morans_i", "neighbors.bbknn",
+        "metrics.morans_i", "model.scanvi", "model.scvi",
+        "neighbors.bbknn",
         "neighbors.knn", "neighbors.knn_multichip", "normalize.clr",
         "normalize.downsample_counts", "normalize.library_size",
         "normalize.log1p", "normalize.pearson_residuals",
@@ -299,7 +320,7 @@ def test_registry_is_separate_from_the_reference():
         "velocity.latent_time", "velocity.lineage_drivers",
         "velocity.moments", "velocity.recover_dynamics",
         "velocity.terminal_states", "wishbone.run"]
-    assert len(sctt.names()) == 73  # of the reference's 79
+    assert len(sctt.names()) == 75  # of the reference's 79
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     meta = sctt.registry.metadata("neighbors.knn_multichip")
     assert meta["sharding"] == "cells" and meta["collective"] is True

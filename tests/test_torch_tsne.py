@@ -106,6 +106,29 @@ def test_tsne_separates_blobs(blobs):
     assert _purity(emb, truth) > 0.95
 
 
+def test_tsne_at_five_components_matches_reference(blobs):
+    """``embed.tsne(n_components=5)``, past the repulsion kernel's
+    former cap of 4 (the reference takes any), over 5 iterations: the
+    tolerance of the layout test above."""
+    import sctools_tpu as sct
+    from sctools_tpu.config import configure as ref_configure
+    from sctools_tpu.data.dataset import CellData as RefCellData
+
+    idx, dist, _ = blobs
+    n = len(idx)
+    x = np.zeros((n, 4), np.float32)
+    kw = dict(n_components=5, n_iter=5, perplexity=5.0)
+    ref_in = RefCellData(x).with_obsp(knn_indices=idx, knn_distances=dist)
+    with ref_configure(graph_impl="xla"):
+        ref = np.asarray(sct.apply("embed.tsne", ref_in, backend="tpu",
+                                   **kw).obsm["X_tsne"])
+    d = CellData(x).with_obsp(knn_indices=idx, knn_distances=dist)
+    out = apply("embed.tsne", d, device="cpu", **kw).obsm["X_tsne"].numpy()
+    assert out.shape == (n, 5) and ref.shape == (n, 5)
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
 def test_tsne_requires_knn():
     d = CellData(np.zeros((10, 4), np.float32))
     with pytest.raises(ValueError, match="neighbors.knn"):
