@@ -200,6 +200,21 @@ Phases, each printing one JSON line, each fatal on a failed check:
              (``MODEL_TOL``); k-means ARI and scANVI's unlabelled
              accuracy printed, seconds an epoch, steps a second, peak
              memory;
+6g. train_stream — ``model.scvi_stream`` on the same counts written
+             as a shard store (8,192-row shards of 2,048-row chunks: 9
+             shards, 133 steps an epoch), 10 epochs at scVI's defaults:
+             through a ``ShardReadScheduler`` whose RAM budget is a tenth
+             of the store's decoded bytes (at least one shard), encoding
+             every cell and saving the model; again with plain reads
+             (bit for bit); preempted by a ``PreemptToken`` at epoch 1,
+             position 4 with a cursor and a journal, then resumed (bit
+             for bit, 90 unique journaled shards); in-memory
+             ``model.scvi`` at the same seed (final losses within 5 %,
+             both histories falling); the saved model reloading bit for
+             bit; the card against the worker's CPU run on 4,096 cells in
+             1,024-row shards over 2 epochs (``MODEL_TOL``).  Seconds an
+             epoch, steps a second, the prefetch's overlap efficiency,
+             store GB read a second and peak memory printed;
 7. neighbors — the rest of the kNN surface on the main path's embedding
              (68,579 × 50, k=15): ``knn_impl="xla"`` under both
              ``knn_coarse`` with refine 0 and 32 (``knn_refine_mode``
@@ -3438,6 +3453,225 @@ def models_phase(main: dict, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# 6g. train_stream
+# ----------------------------------------------------------------------
+
+TS_EPOCHS = 10  # scVI's streamed default
+TS_SHARD, TS_CHUNK = 8192, 2048  # 9 shards of 4 chunk files
+TS_PREEMPT = (1, 4)  # the epoch and position the preempted run yields at
+TS_CUT_SHARD = 1024  # shard rows of the card-against-CPU cut (MODEL_CUT)
+TS_PARITY = 0.05  # streamed against in-memory final loss, relative
+
+
+def train_stream_cut_run(csr, device) -> dict:
+    """``fit_scvi_stream`` on a store of the counts ``csr`` (scipy) in
+    ``TS_CUT_SHARD``-row shards, ``MODEL_CUT_EPOCHS`` epochs, encoding
+    every cell, on ``device``: the latents and history (numpy), for the
+    card-against-CPU compare (a worker job on the CPU)."""
+    import tempfile
+
+    from sctools_tpu_torch.data.shardstore import write_store
+    from sctools_tpu_torch.models.train_stream import fit_scvi_stream
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ts_cut_") as d:
+        store = write_store(csr, os.path.join(d, "store"),
+                            shard_rows=TS_CUT_SHARD,
+                            chunk_rows=TS_CUT_SHARD // 4)
+        res = fit_scvi_stream(store, epochs=MODEL_CUT_EPOCHS, encode=True,
+                              device=device)
+    return {"latent": res["latent"], "history": res["history"]}
+
+
+def train_stream_phase(main: dict, card: str) -> dict:
+    """``model.scvi_stream`` (``fit_scvi_stream``) on the main stand-in's
+    raw counts at the main path's 2,000 HVGs written as a shard store
+    (68,579 × 2,000: ``TS_SHARD``-row shards of ``TS_CHUNK``-row chunks),
+    ``TS_EPOCHS`` epochs at scVI's defaults (n_latent 10, n_hidden 128,
+    512 cells a step).  Runs: through a ``ShardReadScheduler`` with the
+    reference's out-of-core RAM budget (``max(store bytes // 10, one
+    shard)``), ``encode`` and ``params_out``; with plain reads; preempted
+    at ``TS_PREEMPT`` by a ``PreemptToken`` probe with ``checkpoint=`` and
+    ``journal=``, then resumed; and in-memory ``model.scvi`` at the same
+    seed.  Gates: the plain and the resumed runs bit for bit the first
+    (parameters and history), the resume at the preempted cursor, the
+    journal's ``train_shard`` pairs unique and ``TS_EPOCHS`` × shards of
+    them; final losses within ``TS_PARITY`` of the in-memory run's and
+    every history falling; finite outputs, the latent (cells, 10); the
+    artifact reloading bit for bit; the card against the worker's CPU run
+    on the first ``MODEL_CUT`` cells (``MODEL_TOL``), whose shards change
+    under the recorded graph.  Reported: seconds an epoch, steps a
+    second, the overlap efficiency ``overlap_s / (overlap_s +
+    stall_s)``, store GB read a second, peak GB."""
+    import json as _json
+    import tempfile
+
+    import torch
+
+    import sctools_tpu_torch as sctt
+    from sctools_tpu_torch.data.shardstore import (ShardReadScheduler,
+                                                   write_store)
+    from sctools_tpu_torch.models import scvi as M
+    from sctools_tpu_torch.models.train_stream import fit_scvi_stream
+    from sctools_tpu_torch.utils.failsafe import JobPreempted, PreemptToken
+    from sctools_tpu_torch.utils.telemetry import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    raw, out = main["raw"], main["out"]
+    n = out.n_cells
+    names = list(np.asarray(raw.var["gene_name"]))
+    pos = {g: i for i, g in enumerate(names)}
+    genes = np.array([pos[g] for g in np.asarray(out.var["gene_name"])])
+    check(len(genes) == MODEL_GENES, f"{len(genes)} HVG genes")
+    csr = raw.X[:n][:, genes].tocsr()
+    job = cpu_pool().submit(train_stream_cut_run, csr[:MODEL_CUT], "cpu")
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ts_") as tmp:
+        t0 = time.perf_counter()
+        store = write_store(csr, os.path.join(tmp, "store"),
+                            shard_rows=TS_SHARD, chunk_rows=TS_CHUNK)
+        write_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(store.chunk_path(c))
+                   for c in range(store.n_chunks))
+        est = store.shard_nbytes_est()
+        budget = max(est * store.n_shards // 10, est)
+        check(store.n_shards == 9, f"{store.n_shards} shards, not 9")
+        steps = sum(max(store.shard_rows_of(i) // 512, 1)
+                    for i in range(store.n_shards))
+
+        def fit(what, sched=True, **kw):
+            m = MetricsRegistry()
+            sch = (ShardReadScheduler(store, ram_budget_bytes=budget,
+                                      metrics=m) if sched else None)
+            try:
+                res, s_, peak = timed_run(lambda: fit_scvi_stream(
+                    store, scheduler=sch, metrics=m, epochs=TS_EPOCHS,
+                    device=dev, **kw))
+            finally:
+                if sch is not None:
+                    sch.close()
+            c = m.snapshot_compact()
+            ov, st = c.get("train.overlap_s", 0.0), c.get("train.stall_s",
+                                                          0.0)
+            shards = c.get("train.shards", 0.0)
+            runs.append({"run": what, "s": s_, "peak_gb": peak,
+                         "shards": shards, "steps": c.get("train.steps"),
+                         "s_per_epoch": s_ / max(shards / store.n_shards,
+                                                 1e-9),
+                         "steps_per_s": c.get("train.steps", 0.0) / s_,
+                         "overlap_s": ov, "stall_s": st,
+                         "overlap_efficiency": ov / max(ov + st, 1e-9),
+                         "read_gb_per_s": disk * shards / store.n_shards
+                         / 1e9 / s_,
+                         "ingest_reads": {k: v for k, v in c.items()
+                                          if k.startswith("ingest.")}})
+            return res
+
+        model_path = os.path.join(tmp, "scvi_stream.npz")
+        a = fit("scheduled, encode, params_out", encode=True,
+                params_out=model_path)
+        hist = a["history"]
+        check(len(hist) == TS_EPOCHS and hist[-1] < hist[0],
+              "train_stream: the ELBO history did not fall")
+        check(a["latent"].shape == (n, 10), f"latent {a['latent'].shape}")
+        check(bool(np.isfinite(a["latent"]).all()) and bool(
+            np.isfinite(hist).all()) and all(
+            np.isfinite(v).all() for v in M.flatten_params(
+                a["params"]).values()), "train_stream: outputs not finite")
+        tree, meta = M.load_model(model_path)
+        check(same_bits(M.flatten_params(tree), M.flatten_params(
+            a["params"])), "train_stream: the saved model differs from "
+                           "the run's parameters")
+        check(int(meta["epochs"]) == TS_EPOCHS, "artifact meta epochs")
+        b = fit("plain reads", sched=False)
+        check(same_bits(b["history"], hist) and same_bits(
+            b["params"], a["params"]),
+            "train_stream: plain reads differ from scheduled reads")
+        del b
+        ck = os.path.join(tmp, "cursor.npz")
+        jp = os.path.join(tmp, "journal.jsonl")
+        at = TS_PREEMPT[0] * store.n_shards + TS_PREEMPT[1]
+        polls = [0]
+
+        def probe():
+            polls[0] += 1
+            return "priority" if polls[0] == at else None
+
+        try:
+            fit("preempted", checkpoint=ck, journal=jp,
+                preempt=PreemptToken(probe=probe))
+            check(False, "train_stream: the preempted run did not yield")
+        except JobPreempted as e:
+            want = {"epoch": TS_PREEMPT[0], "pos": TS_PREEMPT[1],
+                    "step": TS_PREEMPT[0] * steps + steps_before(
+                        store, *TS_PREEMPT)}
+            check(e.cursor == want, f"preempted at {e.cursor}, not {want}")
+        c = fit("resumed", checkpoint=ck, journal=jp)
+        check(c["resumed_from"] == want,
+              f"resumed from {c['resumed_from']}, not {want}")
+        check(same_bits(c["history"], hist) and same_bits(
+            c["params"], a["params"]),
+            "train_stream: the resumed run differs from the uninterrupted")
+        check(not os.path.exists(ck), "the cursor outlived the run")
+        with open(jp) as f:
+            events = [_json.loads(line) for line in f]
+        pairs = [(e["epoch"], e["pos"]) for e in events
+                 if e["event"] == "train_shard"]
+        check(len(pairs) == len(set(pairs)) == TS_EPOCHS * store.n_shards,
+              f"{len(pairs)} journaled shards, {len(set(pairs))} unique")
+        del c
+
+        # the in-memory run at the same seed and epochs
+        X = torch.from_numpy(csr.toarray().astype(np.float32)).to(dev)
+        o, s_, peak = timed_run(lambda: sctt.apply(
+            "model.scvi", sctt.CellData(X), device=dev, epochs=TS_EPOCHS))
+        inram = np.asarray(o.uns["scvi_elbo_history"])
+        del o, X
+        runs.append({"run": "model.scvi in memory", "s": s_,
+                     "peak_gb": peak, "s_per_epoch": s_ / TS_EPOCHS,
+                     "steps_per_s": TS_EPOCHS * steps / s_})
+        parity = abs(hist[-1] - inram[-1]) / abs(inram[-1])
+        check(inram[-1] < inram[0], "in-memory ELBO did not fall")
+        check(parity <= TS_PARITY,
+              f"streamed final loss {hist[-1]} against in-memory "
+              f"{inram[-1]}: {parity} > {TS_PARITY}")
+
+    # the card against the CPU on the cut, the same draws
+    t0 = time.perf_counter()
+    card_cut = train_stream_cut_run(csr[:MODEL_CUT], dev)
+    cpu_cut = job.result()
+    scale = float(np.abs(cpu_cut["latent"]).max())
+    cmp = {"cells": MODEL_CUT, "shard_rows": TS_CUT_SHARD,
+           "epochs": MODEL_CUT_EPOCHS, "wait_s": time.perf_counter() - t0,
+           "latent": within(f64(card_cut["latent"]), f64(cpu_cut["latent"]),
+                            0.0, MODEL_TOL["latent"] * scale),
+           "latent_scale": scale,
+           "history": within(f64(card_cut["history"]),
+                             f64(cpu_cut["history"]), MODEL_TOL["history"],
+                             0.0)}
+    emit({"phase": "train_stream", "card": card, "cells": n,
+          "genes": MODEL_GENES, "shards": 9, "shard_rows": TS_SHARD,
+          "chunk_rows": TS_CHUNK, "epochs": TS_EPOCHS,
+          "steps_per_epoch": steps, "store_disk_gb": disk / 1e9,
+          "store_decoded_gb": est * 9 / 1e9, "ram_budget_gb": budget / 1e9,
+          "write_s": write_s, "runs": runs, "bitwise": True,
+          "history_first_last": [float(hist[0]), float(hist[-1])],
+          "inram_first_last": [float(inram[0]), float(inram[-1])],
+          "inram_parity": parity, "preempted_at": want,
+          "cpu_compare": cmp, "phase_s": time.perf_counter() - t_phase})
+    return {"runs": runs}
+
+
+def steps_before(store, epoch: int, pos: int) -> int:
+    """The steps of the shards before position ``pos`` of ``epoch``'s
+    order (seed 0, 512 cells a step)."""
+    from sctools_tpu_torch.models.train_stream import epoch_shard_order
+
+    return sum(max(store.shard_rows_of(int(i)) // 512, 1)
+               for i in epoch_shard_order(store.n_shards, epoch, 0)[:pos])
+
+
+# ----------------------------------------------------------------------
 # 6e. velocity
 # ----------------------------------------------------------------------
 
@@ -5864,6 +6098,8 @@ def run() -> int:
     clock("velocity")
     models_phase(main_out, card)
     clock("models")
+    train_stream_phase(main_out, card)
+    clock("train_stream")
     cluster["submit"]()  # after the compares read before the end
     # the worker's CPU runs of the earlier phases, in the order queued
     recipes_finish()

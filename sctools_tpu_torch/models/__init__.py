@@ -1,3 +1,3 @@
 """Deep probabilistic models.  Importing registers their ops."""
 
-from . import scvi  # noqa: F401
+from . import scvi, train_stream  # noqa: F401

@@ -26,10 +26,12 @@ minibatch order, its outputs and its artifact on disk.
   come from one seeded CPU ``torch.Generator`` (:func:`initial_model`,
   :func:`epoch_noise`), not from ``jax.random``: they are drawn on the
   host and copied to the device in one transfer, so the card and the
-  CPU see the same draws.  Tests carry the reference's draws in by
-  patching those two functions.
+  CPU see the same draws.  Streamed training (``models/train_stream.py``)
+  draws each shard's noise from :func:`shard_noise`, seeded by a pure
+  function of (seed, epoch, position).  Tests carry the reference's
+  draws in by patching those functions.
 * An epoch's steps run with no host sync; the loss is read once an
-  epoch.
+  epoch (once a shard in streamed training, :class:`ShardSteps`).
 * ``n_devices > 1`` trains data-parallel on the port's ``Mesh``: the
   rows wrap-padded and split, each device drawing its own rows and
   noise, the per-device gradients added in mesh order
@@ -267,6 +269,20 @@ def epoch_noise(gen: torch.Generator, n_steps: int, rows: int,
                 n_latent: int) -> torch.Tensor:
     """An epoch's reparameterisation noise, N(0, 1) of shape (n_steps,
     rows, n_latent), drawn on the CPU from ``gen``."""
+    return torch.randn((n_steps, rows, n_latent), generator=gen)
+
+
+def shard_noise(seed: int, epoch: int, pos: int, n_steps: int, rows: int,
+                n_latent: int) -> torch.Tensor:
+    """The reparameterisation noise of the shard at position ``pos`` of
+    ``epoch`` in streamed training, N(0, 1) of shape (n_steps, rows,
+    n_latent), drawn on the CPU from a generator seeded by a pure
+    function of (seed, epoch, pos): a resumed run draws what the
+    uninterrupted run drew there."""
+    state = np.random.SeedSequence(
+        [int(seed) & 0x7FFFFFFF, int(epoch), int(pos), 0x5CA1E]
+    ).generate_state(1, np.uint64)[0]
+    gen = torch.Generator().manual_seed(int(state))
     return torch.randn((n_steps, rows, n_latent), generator=gen)
 
 
@@ -520,11 +536,47 @@ class _Epochs:
         else:
             if self.graph is None:
                 self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph):
+                # thread-local: in streamed training the prefetch worker
+                # pins and copies the next shard during a recording
+                with torch.cuda.graph(self.graph,
+                                      capture_error_mode="thread_local"):
                     self._steps()
             self.graph.replay()
         self.done += 1
         return float(self.loss_buf.mean())
+
+
+class ShardSteps:
+    """The steps of streamed training (``models/train_stream.py``),
+    one shard at a time, over shards that change every call.  Each
+    shard is copied into a feed buffer of its shape, one buffer and one
+    :class:`_Epochs` a (rows, steps, batch) shape, and the steps read
+    only the buffer: on a card a shape's first shard runs eagerly, its
+    second is recorded as a CUDA graph, and every later one replays it,
+    so a shape seen once (the short last shard of a one-epoch run)
+    never pays for a recording."""
+
+    def __init__(self, trainer: Trainer, loss, n_latent: int):
+        self.trainer, self.loss, self.n_latent = trainer, loss, n_latent
+        self._shapes: dict = {}  # (rows, n_steps, batch) -> (feed, _Epochs)
+
+    def run(self, X: torch.Tensor, perm, eps, klw: float, t0: int) -> float:
+        """Train on the dense shard ``X`` (rows, G) on the device: the
+        steps' rows ``perm`` (n_steps, batch) and noise ``eps`` (host
+        tensors), the KL weight, ``t0`` Adam steps before.  Returns the
+        shard's mean loss."""
+        key = (X.shape[0], perm.shape[0], perm.shape[1])
+        if key not in self._shapes:
+            # X's own device (cuda:0, not "cuda"): _Epochs records a graph
+            # only when every buffer lies on the device it is given
+            feed = torch.empty_like(X)
+            oh = torch.zeros((X.shape[0], 0), device=X.device)
+            self._shapes[key] = (feed, _Epochs(
+                self.trainer, self.loss, [[feed, oh]], perm.shape[0],
+                perm.shape[1], self.n_latent, X.device))
+        feed, epochs = self._shapes[key]
+        feed.copy_(X)
+        return epochs.run(perm, eps, klw, t0)
 
 
 def _train(model: SCVIModel, X, oh, extras, loss, *, epochs: int,

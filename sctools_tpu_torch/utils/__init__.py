@@ -1,7 +1,8 @@
-"""Utilities of the port: the injectable clock, the error taxonomy the
-prefetch worker retries by, the verified-npz checkpoint layer, the
-device drain and the Adam step."""
+"""Utilities of the port: the injectable clock, the error taxonomy and
+cooperative preemption, the verified-npz checkpoint layer, the metrics
+registry, the IO fault injector, the device drain and the Adam step."""
 
-from . import checkpoint, failsafe, optim, sync, vclock
+from . import chaos, checkpoint, failsafe, optim, sync, telemetry, vclock
 
-__all__ = ["checkpoint", "failsafe", "optim", "sync", "vclock"]
+__all__ = ["chaos", "checkpoint", "failsafe", "optim", "sync", "telemetry",
+           "vclock"]

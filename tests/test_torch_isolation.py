@@ -246,6 +246,27 @@ def test_concat_and_the_new_modules_load_no_jax_and_no_reference():
     assert r.stdout.strip() == "[]"
 
 
+def test_streamed_training_and_fault_modules_load_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import sctools_tpu_torch.models.train_stream\n"
+        "import sctools_tpu_torch.memory, sctools_tpu_torch.runner\n"
+        "import sctools_tpu_torch.utils.chaos\n"
+        "import sctools_tpu_torch.utils.telemetry\n"
+        "from sctools_tpu_torch.data.shardstore import ShardReadScheduler\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'sctools_tpu' or "
+        "m.startswith('sctools_tpu.'))\n"
+        "print(repr(bad))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(_ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(_ROOT),
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 def test_wrapper_dispatches_by_device_and_counts_only_launches():
     q = torch.from_numpy(np.random.default_rng(0).normal(
         size=(20, 8)).astype(np.float32))
@@ -304,7 +325,7 @@ def test_registry_is_separate_from_the_reference():
         "integrate.ingest", "integrate.mnn",
         "metacells.aggregate", "metacells.seacells", "metrics.gearys_c",
         "metrics.morans_i", "model.scanvi", "model.scvi",
-        "neighbors.bbknn",
+        "model.scvi_stream", "neighbors.bbknn",
         "neighbors.knn", "neighbors.knn_multichip", "normalize.clr",
         "normalize.downsample_counts", "normalize.library_size",
         "normalize.log1p", "normalize.pearson_residuals",
@@ -320,7 +341,7 @@ def test_registry_is_separate_from_the_reference():
         "velocity.latent_time", "velocity.lineage_drivers",
         "velocity.moments", "velocity.recover_dynamics",
         "velocity.terminal_states", "wishbone.run"]
-    assert len(sctt.names()) == 75  # of the reference's 79
+    assert len(sctt.names()) == 76  # of the reference's 79
     assert sctt.registry.metadata("pca.randomized")["mem_cost"] == 4.0
     meta = sctt.registry.metadata("neighbors.knn_multichip")
     assert meta["sharding"] == "cells" and meta["collective"] is True

@@ -3,7 +3,13 @@
 A store that either package writes reads back bit for bit in the other
 (same manifest, same chunk digests, same padded-ELL shards), and a
 damaged, renamed or cross-wired chunk raises ``ShardCorruptError`` in
-the port with the reference's ``.reason``."""
+the port with the reference's ``.reason``.
+
+The read scheduler's cases (``tests/test_shardstore.py``) run in both
+packages on copies of one store, with the same faults on the same
+virtual clock: the same shards, ``ingest.*`` counters, fired faults,
+journal events and, where no read is deferred, the same backoff sleeps.
+"""
 
 import json
 import os
@@ -16,9 +22,18 @@ import torch
 
 from sctools_tpu.data import shardstore as ref_store
 from sctools_tpu.data.synthetic import synthetic_counts
+from sctools_tpu.utils import chaos as ref_chaos
+from sctools_tpu.utils.failsafe import \
+    TransientDeviceError as RefTransientError
+from sctools_tpu.utils.telemetry import MetricsRegistry as RefRegistry
+from sctools_tpu.utils.vclock import VirtualClock as RefClock
 from sctools_tpu_torch.data import shardstore as S
 from sctools_tpu_torch.data import stream as stream
 from sctools_tpu_torch.data.sparse import pack_ell, pack_ell_chunks
+from sctools_tpu_torch.utils.chaos import ChaosMonkey, Fault
+from sctools_tpu_torch.utils.failsafe import TransientDeviceError
+from sctools_tpu_torch.utils.telemetry import MetricsRegistry
+from sctools_tpu_torch.utils.vclock import VirtualClock
 
 torch.set_num_threads(2)
 
@@ -179,8 +194,193 @@ def test_store_source_streams_the_same_stats(counts, store):
     # seeks: a resumed pass reads only the shards it has not done
     tail = list(src.iter_from(3))
     assert [o for o, _ in tail] == [768, 1024]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        store.source(scheduler=object(), device="cpu")
+    # a scheduler must serve this store, and fail on corruption
+    with pytest.raises(ValueError, match="different store"):
+        store.source(scheduler=S.ShardReadScheduler(
+            S.ShardStore.open(store.directory)), device="cpu")
+    with pytest.raises(ValueError, match="skip"):
+        store.source(scheduler=S.ShardReadScheduler(store, on_corrupt="skip"),
+                     device="cpu")
+    with pytest.raises(ValueError, match="on_corrupt"):
+        S.ShardReadScheduler(store, on_corrupt="ignore")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             store.source()
+
+
+# ----------------------------------------------------------------------
+# the read scheduler, in both packages
+# ----------------------------------------------------------------------
+
+_PORT = dict(store=S.ShardStore, sched=S.ShardReadScheduler,
+             monkey=ChaosMonkey, fault=Fault, registry=MetricsRegistry,
+             clock=VirtualClock, corrupt=S.ShardCorruptError,
+             transient=TransientDeviceError)
+_REF = dict(store=ref_store.ShardStore, sched=ref_store.ShardReadScheduler,
+            monkey=ref_chaos.ChaosMonkey, fault=ref_chaos.Fault,
+            registry=RefRegistry, clock=RefClock,
+            corrupt=ref_store.ShardCorruptError,
+            transient=RefTransientError)
+
+
+def _run_ladder(kit, directory, faults, slow_s=30.0, journal=None,
+                consumers=1, start=0, **kw):
+    """Open the store at ``directory`` in one package, read it through a
+    scheduler with ``faults`` on a virtual clock; returns what the
+    reading gave (the shards as CSR, or the exception), the counters,
+    the clock's sleeps, the fired faults, the consults and ``.skipped``."""
+    store = kit["store"].open(directory)
+    clk = kit["clock"]()
+    m = kit["registry"]()
+    monkey = kit["monkey"]([kit["fault"](*f[:2], **f[2]) for f in faults],
+                           slow_s=slow_s)
+    sched = kit["sched"](store, clock=clk, metrics=m, chaos=monkey,
+                         journal=journal, **kw)
+    with sched:
+        try:
+            if consumers == 1:
+                got = [s.to_scipy_csr() for s in sched.iter_shards(start)]
+            else:
+                its = [sched.iter_shards(start) for _ in range(consumers)]
+                got = [[s.to_scipy_csr() for s in t] for t in zip(*its)]
+        except Exception as e:  # noqa: BLE001 - compared between packages
+            got = e
+    snap = m.snapshot()
+    return {"got": got, "counters": snap["counters"],
+            "wait": snap["histograms"].get("ingest.read_wait_s"),
+            "sleeps": list(clk.sleeps),
+            "fired": sorted((f["op"], f["mode"]) for f in monkey.injected),
+            "consulted": sorted(monkey.calls), "skipped": list(sched.skipped)}
+
+
+LADDER = {
+    # name: (faults, slow_s, scheduler kwargs, same sleeps)
+    "budget": ([], 30.0, dict(n_readers=2, ram_budget_bytes="one"), True),
+    "retry": ([("chunk-00000", "io_error", dict(times=2))], 30.0, {}, True),
+    "exhausted": ([("chunk-00000", "io_error", dict(times=-1))], 30.0, {},
+                  True),
+    "truncate": ([("chunk-00006", "truncate_shard", {})], 30.0,
+                 dict(on_corrupt="fail"), True),
+    "hedge": ([("chunk-00004", "slow_read", {})], 9.0,
+              dict(hedge_after_s=2.0), False),
+    "below_slo": ([("chunk-00004", "slow_read", {})], 1.0,
+                  dict(hedge_after_s=5.0), False),
+    "deadline": ([("chunk-00000", "slow_read", dict(times=1))], 60.0,
+                 dict(read_deadline_s=3.0), False),
+    "acceptance": ([("chunk-00005", "io_error", dict(times=2)),
+                    ("chunk-00009", "truncate_shard", {}),
+                    ("chunk-00013", "slow_read", {})], 9.0,
+                   dict(n_readers=2, hedge_after_s=2.0, on_corrupt="skip"),
+                   False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LADDER))
+def test_read_ladder_matches_the_reference(counts, store, tmp_path, case):
+    """Each rung of the reference's tests (its budget, retry, exhausted
+    retry, quarantine, hedge, SLO, deadline and acceptance cases) in
+    both packages on copies of one store."""
+    faults, slow_s, kw, same_sleeps = LADDER[case]
+    if kw.get("ram_budget_bytes") == "one":
+        kw = dict(kw, ram_budget_bytes=store.shard_nbytes_est())
+    ref_dir = str(tmp_path / "ref_copy")
+    shutil.copytree(store.directory, ref_dir)
+    runs = {}
+    for name, kit, d in (("port", _PORT, store.directory),
+                         ("ref", _REF, ref_dir)):
+        jp = str(tmp_path / f"{name}.jsonl")
+        runs[name] = _run_ladder(kit, d, faults, slow_s, journal=jp, **kw)
+        runs[name]["events"] = ([json.loads(x) for x in open(jp)]
+                                if os.path.exists(jp) else [])
+    port, ref = runs["port"], runs["ref"]
+    assert port["counters"] == ref["counters"]
+    assert port["fired"] == ref["fired"]
+    assert port["skipped"] == ref["skipped"]
+    if same_sleeps:
+        assert port["sleeps"] == ref["sleeps"]
+    if isinstance(ref["got"], Exception):
+        assert type(port["got"]).__name__ == type(ref["got"]).__name__
+        assert str(port["got"]).replace(store.directory, "") == str(
+            ref["got"]).replace(ref_dir, "")
+    else:
+        assert len(port["got"]) == len(ref["got"])
+        for a, b in zip(port["got"], ref["got"]):
+            assert (a != b).nnz == 0
+    for e in port["events"] + ref["events"]:
+        e.pop("ts")
+        e["path"] = os.path.basename(e["path"])
+    assert port["events"] == ref["events"]
+    X = _sorted_csr(counts.X)
+    c = port["counters"]
+    if case == "budget":
+        assert c["ingest.reads{outcome=served}"] == store.n_shards
+        assert (sp.vstack(port["got"], format="csr") != X).nnz == 0
+    elif case == "retry":
+        assert c["ingest.retries"] == 2 and port["sleeps"]
+        assert c["ingest.reads{outcome=retried}"] == 1
+    elif case == "exhausted":
+        assert isinstance(port["got"], TransientDeviceError)
+        assert "io_error" in str(port["got"])
+    elif case == "truncate":
+        assert isinstance(port["got"], S.ShardCorruptError)
+        assert port["got"].chunk == 6
+        qdir = os.path.join(store.directory, "chunks", "quarantine")
+        assert os.path.exists(os.path.join(qdir, "chunk-00006.npz"))
+        assert os.path.exists(os.path.join(qdir,
+                                           "chunk-00006.npz.reason.json"))
+        assert not os.path.exists(store.chunk_path(6))  # moved, kept
+        assert [e["event"] for e in port["events"]] == ["shard_quarantined"]
+        assert port["events"][0]["shard"] == 1
+    elif case == "hedge":
+        assert c["ingest.hedges"] == 1
+        assert c["ingest.reads{outcome=hedged}"] == 1
+        assert port["wait"]["max"] < 9.0
+    elif case == "below_slo":
+        assert "ingest.hedges" not in c
+        assert c["ingest.reads{outcome=served}"] == store.n_shards
+    elif case == "deadline":
+        assert c["ingest.reads{outcome=retried}"] == 1
+    else:
+        assert port["skipped"] == [2]
+        kept = sp.vstack([X[:512], X[768:]], format="csr")
+        assert (sp.vstack(port["got"], format="csr") != kept).nnz == 0
+        assert c["ingest.quarantines"] == 1
+
+
+def test_scheduler_feeds_two_consumers_and_seeks(counts, store, tmp_path):
+    X = _sorted_csr(counts.X)
+    two = _run_ladder(_PORT, store.directory, [], consumers=2, n_readers=2)
+    for k in range(2):
+        assert (sp.vstack([pair[k] for pair in two["got"]], format="csr")
+                != X).nnz == 0
+    # a seek touches none of the skipped shards' chunks
+    port = _run_ladder(_PORT, store.directory, [], start=3)
+    ref = _run_ladder(_REF, store.directory, [], start=3)
+    assert len(port["got"]) == store.n_shards - 3
+    assert port["consulted"] == ref["consulted"] == [
+        f"chunk-{c:05d}@io" for c in range(store.chunk_range(3)[0],
+                                           store.n_chunks)]
+    with S.ShardReadScheduler(store) as sched:
+        with pytest.raises(IndexError):
+            list(sched.iter_order([0, 99]))
+        got = [s.to_scipy_csr() for s in sched.iter_order([3, 2, 0, 1])]
+    for s, i in zip(got, [3, 2, 0, 1]):
+        assert (s != store.read_shard(i).to_scipy_csr()).nnz == 0
+
+
+def test_source_through_the_scheduler_equals_plain(counts, store):
+    """``stream_stats`` over ``source(scheduler=)`` gives the plain
+    source's bits, and a seek through the scheduler reads only the
+    shards left."""
+    m = MetricsRegistry()
+    with S.ShardReadScheduler(store, n_readers=2, metrics=m) as sched:
+        got = stream.stream_stats(store.source(scheduler=sched,
+                                               device="cpu"))
+        tail = list(store.source(scheduler=sched, device="cpu",
+                                 prefetch=False).iter_from(3))
+    want = stream.stream_stats(store.source(device="cpu"))
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert [o for o, _ in tail] == [768, 1024]
+    assert m.snapshot_compact()["ingest.reads{outcome=served}"] == \
+        store.n_shards + 2
