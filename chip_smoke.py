@@ -8,7 +8,9 @@ Phases, each printing one JSON line, each fatal on a failed check:
 
 1. card    — ``nvidia-smi`` name and power limit, torch and CUDA
              versions, and the build of the CUDA kernels from
-             ``sctools_tpu_torch/csrc`` (nvcc, at first use);
+             ``sctools_tpu_torch/csrc`` (nvcc, at first use) and of the
+             host library ``csrc/scio.cpp`` (the ELL packers,
+             ``$CXX``);
 2. main    — the BASELINE configs[1] shape (68,579 cells × 32,738
              genes): QC → library size → log1p → HVG (2000, subset) →
              50-PC randomized PCA → cosine kNN (k=15) through
@@ -53,6 +55,19 @@ Phases, each printing one JSON line, each fatal on a failed check:
              hvg.select (and phase main's) run on a worker process while
              the card goes on; their checks are read after phase
              models;
+2c. io    — BASELINE configs[0]'s counts (2,700 × 32,738) written as
+             a 10x v3 directory (plain and gzipped ``matrix.mtx``,
+             repeated gene symbols) and read by ``read_10x_mtx``: the
+             CSR as written, the names unique after
+             ``var_names_make_unique``; ``MAIN_STEPS`` on the card from
+             the read data (knn_select launched, each row's 10 ids
+             distinct cells, recall@10 ≥ 0.99 with exact ties counted
+             as found and ≥ 0.986 by ids, the HVG set that of
+             ``from_scipy`` of the written matrix); then the native
+             host packer against its numpy plain version at
+             the main path's 68,579 × 32,738 (host pack and
+             ``to_device``) and on one store shard (``pack_ell_chunks``),
+             planes bit for bit, each timed;
 3. binned  — ``neighbors.knn`` (k=15) on the main path's output under
              ``knn_impl="pallas_binned"`` (1024 bins): knn_binned
              launched once and knn_select never, recall@10 ≥ 0.98;
@@ -552,18 +567,22 @@ def peaks_for(name: str) -> tuple[str, dict]:
 def card_phase() -> str:
     import torch
 
-    from sctools_tpu_torch import cuda_build
+    from sctools_tpu_torch import cuda_build, host_build
 
     line = smi_line()
     print(line, flush=True)
     t0 = time.perf_counter()
     lib = cuda_build.build(verbose=True)
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_lib = host_build.build()  # before phase main times its packing
+    host_build_s = time.perf_counter() - t0
     emit({"phase": "card", "nvidia_smi": line,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "library": lib.name,
-          "build_s": build_s})
+          "build_s": build_s, "host_library": host_lib.name,
+          "host_build_s": host_build_s})
     return line
 
 
@@ -1105,6 +1124,241 @@ def recipes_phase(main: dict, card: str) -> dict:
               "cpu_wait_s": time.perf_counter() - t0})
 
     return atlas, finish
+
+
+# ----------------------------------------------------------------------
+# 2c. io
+# ----------------------------------------------------------------------
+
+IO_CELLS, IO_GENES = 2_700, 32_738  # BASELINE configs[0]
+IO_REPEAT = 97  # every 97th gene is written with the symbol before it
+IO_REPS = 2  # timed calls of each packer
+# recall@10 by ids on configs[0], as read on the H100 (0.9861): its cells
+# equal up to scale are tied, and the kernel and oracle break ties apart
+IO_RECALL_IDS = 0.986
+# one shard as phase stream's store sub-phase writes it (STORE_SHARD_ROWS
+# rows in four chunk files), here of the main path's counts
+IO_SHARD_ROWS, IO_CHUNK_ROWS = 32_768, 8_192
+
+
+def write_10x(d: str, csr, gene_ids, symbols, barcodes, gz: bool) -> None:
+    """A 10x v3 directory: ``matrix.mtx`` (genes × cells, integer
+    counts; gzipped when ``gz``), ``features.tsv.gz`` and
+    ``barcodes.tsv.gz``."""
+    import gzip
+    import shutil
+
+    import scipy.io
+
+    os.makedirs(d)
+    mtx = os.path.join(d, "matrix.mtx")
+    scipy.io.mmwrite(mtx, csr.T.tocoo(), field="integer")
+    if gz:
+        with open(mtx, "rb") as src, gzip.open(mtx + ".gz", "wb",
+                                               compresslevel=1) as dst:
+            shutil.copyfileobj(src, dst)
+        os.remove(mtx)
+    with gzip.open(os.path.join(d, "features.tsv.gz"), "wt") as fh:
+        fh.writelines(f"{i}\t{s}\tGene Expression\n"
+                      for i, s in zip(gene_ids, symbols))
+    with gzip.open(os.path.join(d, "barcodes.tsv.gz"), "wt") as fh:
+        fh.writelines(f"{b}\n" for b in barcodes)
+
+
+def wall_times(fn, reps: int = IO_REPS) -> tuple:
+    """``fn()``'s last output and the host seconds of ``reps`` calls
+    (each ending in a device sync)."""
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def same_planes(a, b) -> bool:
+    """Two padded-ELL planes (numpy or tensors) equal bit for bit."""
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and x.tobytes() == y.tobytes()
+               for x, y in zip(map(host_array, a), map(host_array, b)))
+
+
+def tie_recall(x, ids, oracle_d, k: int = 10, rtol: float = 1e-6) -> float:
+    """recall@k that counts a returned neighbour as found when its
+    float64 cosine distance is at most the oracle's k-th (within
+    ``rtol``): configs[0]'s embedding holds cells whose rows are equal
+    up to scale (distance 0 to each other), and among such ties any
+    order is exact, while ``recall_at_k`` counts ids."""
+    x = np.asarray(x, np.float64)
+    x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+    got = np.asarray(ids)[:, :k]
+    d = 1.0 - np.einsum("id,ikd->ik", x, x[got])
+    kth = np.asarray(oracle_d, np.float64)[:, k - 1:k]
+    return float(np.mean(d <= kth + rtol * np.maximum(1.0, np.abs(kth))))
+
+
+def io_phase(main: dict, card: str) -> None:
+    """BASELINE configs[0]'s counts (``synthetic_counts(2700, 32738,
+    density=0.02, n_clusters=3, seed=0)``) written as a 10x v3 directory
+    (every ``IO_REPEAT``-th gene with the symbol of the gene before it),
+    once with a plain and once with a gzipped ``matrix.mtx``, and read
+    by ``read_10x_mtx``: each CSR equal to the written one (ids, row
+    pointers, float32 value bits), barcodes and ids as written.  After
+    ``var_names_make_unique()`` (names unique, the repeats suffixed
+    ``-1``), ``MAIN_STEPS`` on the card: knn_select launched, each
+    cell's 10 nearest ids distinct cells, recall@10 ≥ 0.99 against the
+    float64 oracle on every cell with exact ties counted as found
+    (``tie_recall``) and ≥ ``IO_RECALL_IDS`` by ids (the count of cells
+    tied with another printed beside it), the HVG set that of the same
+    pipeline from ``from_scipy`` of the written matrix.  Then the packers at the main
+    path's size: the host pack of phase main's raw counts and their
+    ``to_device``, native against the numpy plain version (planes bit
+    for bit), and one store shard's ``pack_ell_chunks``
+    (``IO_SHARD_ROWS`` rows of those counts, four chunks) native against
+    numpy, also bit for bit.  Prints the times."""
+    import tempfile
+
+    import torch
+
+    import sctools_tpu_torch as sctt
+    from sctools_tpu_torch.config import round_up
+    from sctools_tpu_torch.data import sparse as SP
+    from sctools_tpu_torch.data.shardstore import write_store
+    from sctools_tpu_torch.data.synthetic import synthetic_counts
+    from sctools_tpu_torch.ops.knn import recall_at_k
+    from sctools_tpu_torch.ops.knn_kernel import knn_select
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    ds = synthetic_counts(IO_CELLS, IO_GENES, density=0.02, n_clusters=3,
+                          seed=0)
+    csr = ds.X
+    names = np.asarray(ds.var["gene_name"])
+    symbols = [names[g - 1] if g and g % IO_REPEAT == 0 else names[g]
+               for g in range(IO_GENES)]
+    gene_ids = [f"ENSG{g:011d}" for g in range(IO_GENES)]
+    barcodes = [f"AAACCTGAGAAACC{c:06d}-1" for c in range(IO_CELLS)]
+    reads = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_10x_") as tmp:
+        for gz in (False, True):
+            what = "gz" if gz else "plain"
+            d = os.path.join(tmp, what)
+            t0 = time.perf_counter()
+            write_10x(d, csr, gene_ids, symbols, barcodes, gz)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = sctt.read_10x_mtx(d)
+            read_s = time.perf_counter() - t0
+            X = got.X
+            check(X.shape == csr.shape
+                  and np.array_equal(X.indptr, csr.indptr)
+                  and np.array_equal(X.indices, csr.indices)
+                  and X.data.tobytes() == csr.data.tobytes(),
+                  f"io: the {what} 10x read differs from the written matrix")
+            check(got.obs["barcode"].tolist() == barcodes
+                  and got.var["gene_ids"].tolist() == gene_ids
+                  and got.var["gene_name"].tolist() == symbols,
+                  f"io: the {what} 10x read's names differ from the written")
+            reads[what] = {"write_s": write_s, "read_s": read_s,
+                           "dtype": str(X.dtype)}
+            if not gz:
+                data = got
+    data = data.var_names_make_unique()
+    uniq = data.var["gene_name"]
+    check(len(set(uniq.tolist())) == IO_GENES
+          and uniq[IO_REPEAT] == f"{symbols[IO_REPEAT]}-1",
+          "io: var_names_make_unique left repeats")
+
+    pipe = sctt.Pipeline(MAIN_STEPS)
+    knn_select.launches = 0
+    out, run_s = wall_times(lambda: pipe.run(data, device=dev), reps=1)
+    launches = knn_select.launches
+    check(launches > 0, "io: the main path from the 10x read launched no "
+                        "knn_select kernel")
+    n = out.n_cells
+    host = out.obsm["X_pca"][:n].cpu().numpy()
+    check(np.isfinite(host).all() and host.shape == (IO_CELLS, 50),
+          "io: X_pca not finite or of the wrong shape")
+    ids = out.obsp["knn_indices"][:n].cpu().numpy()
+    top = np.sort(ids[:, :10], axis=1)
+    check(((top >= 0) & (top < n)).all()
+          and (top[:, 1:] != top[:, :-1]).all(),
+          "io: a cell's 10 nearest ids hold a sentinel or a repeat")
+    oracle, oracle_d = card_oracle(host, host, k=15, metric="cosine")
+    # cells with another at cosine distance 0: the oracle's second
+    # nearest (the first is the cell or its twin) as close as the first
+    tied = int(np.sum(oracle_d[:, 1] <= 1e-6))
+    recall = recall_at_k(ids, oracle, k=10)
+    recall_ties = tie_recall(host, ids, oracle_d, k=10)
+    check(recall_ties >= 0.99 and recall >= IO_RECALL_IDS,
+          f"io: recall@10 {recall_ties} with ties counted (≥ 0.99), "
+          f"{recall} by ids (≥ {IO_RECALL_IDS}); {tied} tied cells")
+    base = pipe.run(sctt.from_scipy(csr, var={"gene_ids": np.array(
+        gene_ids)}), device=dev)
+    check(np.array_equal(out.var["gene_ids"], base.var["gene_ids"]),
+          "io: the HVG set from the 10x read differs from from_scipy's")
+
+    # the packers at the main path's size
+    raw = main["raw"]
+    X = raw.X
+    args = (X.indptr.astype(np.int64), X.indices, X.data)
+    rows_padded = round_up(X.shape[0], 8)
+    cap = round_up(int(np.diff(X.indptr).max()), 128)
+    nat, pack_native = wall_times(lambda: SP.pack_ell(
+        *args, rows_padded, cap, X.shape[1]))
+    plain, pack_plain = wall_times(lambda: SP.pack_ell_plain(
+        *args, rows_padded, cap, X.shape[1]))
+    check(same_planes(nat, plain), "io: the native pack differs from numpy")
+    del nat, plain
+    a, dev_native = wall_times(lambda: raw.to_device(dev))
+    native_pack = SP.pack_ell
+    SP.pack_ell = SP.pack_ell_plain  # from_scipy_csr's packer, for now
+    try:
+        b, dev_plain = wall_times(lambda: raw.to_device(dev))
+    finally:
+        SP.pack_ell = native_pack
+    check(same_planes((a.X.indices, a.X.data), (b.X.indices, b.X.data)),
+          "io: to_device's planes differ between the native and numpy pack")
+    del a, b
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_store_") as tmp:
+        store = write_store(X[:IO_SHARD_ROWS], os.path.join(tmp, "s"),
+                            shard_rows=IO_SHARD_ROWS,
+                            chunk_rows=IO_CHUNK_ROWS)
+        t0 = time.perf_counter()
+        chunks = []
+        for c in range(*store.chunk_range(0)):
+            dat, ind, ptr, _ = store.read_chunk_arrays(c, shard=0)
+            chunks.append((ptr, ind, dat,
+                           store.manifest["chunks"][c]["row_start"]))
+        read_verify_s = time.perf_counter() - t0
+        shard_args = (chunks, round_up(IO_SHARD_ROWS, 8), store.capacity,
+                      store.n_genes)
+        nat, chunks_native = wall_times(
+            lambda: SP.pack_ell_chunks(*shard_args))
+        plain, chunks_plain = wall_times(
+            lambda: SP.pack_ell_chunks_plain(*shard_args))
+        check(same_planes(nat, plain),
+              "io: the native chunk decode differs from numpy")
+        shard = {"rows": IO_SHARD_ROWS, "chunks": len(chunks),
+                 "capacity": store.capacity,
+                 "nnz": int(sum(len(c[2]) for c in chunks)),
+                 "read_verify_s": read_verify_s,
+                 "native_s": chunks_native, "plain_s": chunks_plain}
+    pack = {"cells": X.shape[0], "genes": X.shape[1], "nnz": int(X.nnz),
+            "capacity": cap, "native_s": pack_native, "plain_s": pack_plain,
+            "to_device_native_s": dev_native,
+            "to_device_plain_s": dev_plain, "host_cores":
+            len(os.sched_getaffinity(0))}
+    emit({"phase": "io", "card": card, "cells": IO_CELLS,
+          "genes": IO_GENES, "nnz": int(csr.nnz), "reads": reads,
+          "run_s": run_s[0], "knn_select_launches": launches,
+          "recall_at_10": recall_ties, "recall_at_10_by_ids": recall,
+          "tied_cells": tied,
+          "hvg_equal": True, "pack": pack,
+          "store_shard": shard, "phase_s": time.perf_counter() - t_phase})
 
 
 # ----------------------------------------------------------------------
@@ -6074,6 +6328,8 @@ def run() -> int:
     clock("sharded")
     atlas, recipes_finish = recipes_phase(main_out, card)
     clock("recipes")
+    io_phase(main_out, card)
+    clock("io")
     binned_launches = binned_phase(main_out, card)
     clock("binned")
     graph = graph_phase(main_out["out"], card)

@@ -17,6 +17,15 @@ imports), with the same dotted op names and containers:
     out = sct.apply("embed.tsne", out)
     host = out.to_host()
 
+Files are read on the host (``read_h5ad``, ``read_10x_mtx``,
+``read_10x_h5``, ``read_loom``, ``read_csv``, ``read_text``,
+``read_mtx``, ``read`` by suffix; ``write_h5ad``, ``write_loom``), and
+packed to padded ELL by a native host library built at first use
+(``native``, ``host_build.py``):
+
+    ds = sct.read_10x_mtx("filtered_feature_bc_matrix/")
+    ds = ds.var_names_make_unique()
+
 Samples are merged on the host with ``concat`` and integrated on the
 card (``integrate.combat``, ``harmony``, ``mnn``, ``ingest``):
 
@@ -36,7 +45,9 @@ from . import data, models, ops, parallel, utils
 from .config import config, configure
 from .data.concat import concat
 from .data.dataset import CellData
-from .data.io import from_dense, from_scipy
+from .data.io import (from_dense, from_scipy, read, read_10x_h5,
+                      read_10x_mtx, read_csv, read_h5ad, read_loom,
+                      read_mtx, read_text, write_h5ad, write_loom)
 from .data.sparse import SparseCells
 from .recipes import recipe_pipeline
 from .registry import Pipeline, Transform, apply, get, names, register
@@ -44,4 +55,6 @@ from .registry import Pipeline, Transform, apply, get, names, register
 __all__ = ["CellData", "Pipeline", "SparseCells", "Transform", "apply",
            "concat", "config", "configure", "data", "from_dense",
            "from_scipy", "get", "models", "names", "ops", "parallel",
-           "recipe_pipeline", "register"]
+           "read", "read_10x_h5", "read_10x_mtx", "read_csv", "read_h5ad",
+           "read_loom", "read_mtx", "read_text", "recipe_pipeline",
+           "register", "write_h5ad", "write_loom"]

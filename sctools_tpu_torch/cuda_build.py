@@ -123,17 +123,23 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def load(path: Path, signatures: dict) -> ctypes.CDLL:
+    """Load a built library with ``ctypes`` and declare each entry point
+    of ``signatures`` (name → (argument types, return type)) once."""
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed; every launch
     calls this, so after the first call it only returns the handle."""
     global _loaded
     if _loaded is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _loaded = lib
+        _loaded = load(build(), _SIGNATURES)
     return _loaded
 
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .sharded import ShardedRows, is_sharded
-from .sparse import SparseCells
+from .sparse import SparseCells, dense_gene_block
 
 #: what an op that does not run on cell-sharded data says when given it
 SHARDED_TODO = ("this op does not run on cell-sharded data yet (it would "
@@ -61,6 +61,30 @@ class CellData:
     def shape(self):
         return (self.n_cells, self.n_genes)
 
+    # anndata's names for the same things (adata.n_obs, adata.var_names):
+    # the name arrays fall back to positional string ids, as a fresh
+    # AnnData's index does
+    @property
+    def n_obs(self) -> int:
+        return self.n_cells
+
+    @property
+    def n_vars(self) -> int:
+        return self.n_genes
+
+    @property
+    def obs_names(self) -> np.ndarray:
+        for key in ("cell_name", "barcode"):
+            if key in self.obs:
+                return np.asarray(self.obs[key]).astype(str)
+        return np.arange(self.n_cells).astype(str)
+
+    @property
+    def var_names(self) -> np.ndarray:
+        if "gene_name" in self.var:
+            return np.asarray(self.var["gene_name"]).astype(str)
+        return np.arange(self.n_genes).astype(str)
+
     def replace(self, **kw) -> "CellData":
         return dataclasses.replace(self, **kw)
 
@@ -72,6 +96,40 @@ class CellData:
 
     def with_var(self, **entries) -> "CellData":
         return self.replace(var={**self.var, **entries})
+
+    def var_names_make_unique(self, join: str = "-") -> "CellData":
+        """``var["gene_name"]`` with each repeat suffixed ``-1``, ``-2``,
+        … (``join`` before the count) and the first occurrence unchanged,
+        as anndata's ``var_names_make_unique`` (10x references repeat
+        gene symbols).  A suffixed name that already exists anywhere, or
+        was already issued, is bumped to the next count.  Returns a new
+        ``CellData`` (``self`` when the names are absent or unique)::
+
+            data = data.var_names_make_unique()
+        """
+        names = self.var.get("gene_name")
+        if names is None:
+            return self
+        names = np.asarray(names).astype(str)
+        if len(np.unique(names)) == len(names):
+            return self
+        # a list, not the '<U..' array: 'A-1' written into '<U1' is 'A'
+        existing = set(names.tolist())
+        seen: dict = {}
+        out: list = []
+        for nm in names:
+            k = seen.get(nm, 0)
+            if k:
+                new = f"{nm}{join}{k}"
+                while new in existing or new in seen:
+                    k += 1
+                    new = f"{nm}{join}{k}"
+                out.append(new)
+                seen[new] = 1
+            else:
+                out.append(nm)
+            seen[nm] = k + 1
+        return self.with_var(gene_name=np.asarray(out))
 
     def with_obsm(self, **entries) -> "CellData":
         return self.replace(obsm={**self.obsm, **entries})
@@ -160,6 +218,33 @@ class CellData:
             {k: fetch(v, trim=True) for k, v in self.layers.items()},
         )
 
+    def obs_vector(self, key: str) -> np.ndarray:
+        """anndata's ``obs_vector``: an obs column, or the expression of
+        the gene named ``key`` (``var["gene_name"]``, first match) across
+        the cells, as a host numpy array.  On a padded-ELL X on the card
+        only that gene's column is fetched."""
+        if key in self.obs:
+            return _host(self.obs[key])[: self.n_cells]
+        names = self.var.get("gene_name")
+        if names is not None:
+            pos = np.nonzero(np.asarray(names).astype(str) == key)[0]
+            if len(pos):
+                return _gene_column(self.X, int(pos[0]), self.n_cells)
+        raise KeyError(
+            f"obs_vector: {key!r} is neither an obs column nor a gene "
+            "name")
+
+    def var_vector(self, key) -> np.ndarray:
+        """anndata's ``var_vector``: a var column, or the expression of
+        the cell at integer position ``key`` across the genes, as a host
+        numpy array."""
+        if key in self.var:
+            return _host(self.var[key])[: self.n_genes]
+        if isinstance(key, (int, np.integer)):
+            row = int(_axis_index(key, self.n_cells, None, "cell")[0])
+            return _cell_row(self.X, row, self.n_genes)
+        raise KeyError(f"var_vector: {key!r} is not a var column")
+
     def __getitem__(self, key) -> "CellData":
         """AnnData-style subsetting: ``d[cells]``, ``d[:, genes]`` or
         ``d[cells, genes]``.  Selectors: a slice, a boolean mask (longer
@@ -205,6 +290,35 @@ class CellData:
             f"  obsp: {ks(self.obsp)}\n  layers: {ks(self.layers)}\n"
             f"  uns: {ks(self.uns)})"
         )
+
+
+def _host(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _gene_column(X, gene: int, n: int) -> np.ndarray:
+    """Column ``gene`` of X over the first ``n`` cells, on the host."""
+    if isinstance(X, ShardedRows):
+        raise NotImplementedError(SHARDED_TODO)
+    if isinstance(X, SparseCells):
+        return dense_gene_block(X, gene, 1)[:, 0].cpu().numpy()
+    if hasattr(X, "toarray"):
+        return X.tocsr()[:, gene].toarray().ravel()[:n]
+    return _host(X[:n, gene])
+
+
+def _cell_row(X, row: int, n_genes: int) -> np.ndarray:
+    """Row ``row`` of X over the genes, on the host (entries of one gene
+    stored twice in a row add up, as in ``SparseCells.to_dense``)."""
+    if isinstance(X, ShardedRows):
+        raise NotImplementedError(SHARDED_TODO)
+    if isinstance(X, SparseCells):
+        out = torch.zeros(n_genes + 1, dtype=X.data.dtype, device=X.device)
+        out.scatter_add_(0, X.indices[row].long(), X.data[row])
+        return out[:n_genes].cpu().numpy()
+    if hasattr(X, "toarray"):
+        return X.tocsr()[row].toarray().ravel()
+    return _host(X[row])[:n_genes]
 
 
 def _axis_index(key, n: int, names, axis: str):

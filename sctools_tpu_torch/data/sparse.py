@@ -26,6 +26,8 @@ import numpy as np
 import torch
 
 from ..config import config, round_up, true_f32
+# pack_ell_chunks is the shard store's decode (data/shardstore.py)
+from ..native import pack_ell, pack_ell_chunks  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,8 +111,8 @@ class SparseCells:
     def from_scipy_csr(cls, csr, capacity: int | None = None,
                        rows_multiple: int | None = None, dtype=None,
                        device="cpu") -> "SparseCells":
-        """Pack a scipy sparse matrix into padded-ELL (on the host, then
-        moved to ``device``)."""
+        """Pack a scipy sparse matrix into padded-ELL (on the host, by
+        the native packer for float32 data, then moved to ``device``)."""
         import scipy.sparse as sp
 
         if not sp.issparse(csr):
@@ -130,10 +132,10 @@ class SparseCells:
                 "to drop counts")
         rows_padded = round_up(max(n_cells, 1),
                                rows_multiple or config.sublane)
-        indices, data = pack_ell(csr.indptr.astype(np.int64),
-                                 csr.indices.astype(np.int32),
-                                 csr.data.astype(dtype), rows_padded,
-                                 capacity, sentinel=n_genes)
+        indices, data = pack_ell(csr.indptr.astype(np.int64, copy=False),
+                                 csr.indices.astype(np.int32, copy=False),
+                                 csr.data.astype(dtype, copy=False),
+                                 rows_padded, capacity, sentinel=n_genes)
         return cls(torch.from_numpy(indices).to(device),
                    torch.from_numpy(data).to(device), n_cells, n_genes)
 
@@ -184,9 +186,12 @@ def gather_rows_sparse(x: SparseCells, idx) -> SparseCells:
     return SparseCells(ind, dat, n_new, x.n_genes)
 
 
-def pack_ell(indptr, col_indices, data, rows_padded, capacity, sentinel):
+def pack_ell_plain(indptr, col_indices, data, rows_padded, capacity,
+                   sentinel):
     """CSR arrays → padded-ELL ``(indices, values)`` numpy arrays of
-    shape ``(rows_padded, capacity)``."""
+    shape ``(rows_padded, capacity)``, in numpy: the plain version of
+    the native :func:`pack_ell`, which the tests hold to it, and its path
+    for data other than float32."""
     n_rows = len(indptr) - 1
     nnz = np.diff(indptr)
     out_idx = np.full((rows_padded, capacity), sentinel, dtype=np.int32)
@@ -198,14 +203,10 @@ def pack_ell(indptr, col_indices, data, rows_padded, capacity, sentinel):
     return out_idx, out_val
 
 
-def pack_ell_chunks(chunks, rows_padded, capacity, sentinel):
-    """Decode several CSR chunks (disjoint row ranges of one shard) into
-    one padded-ELL buffer — the shard store's read path.  ``chunks`` is
-    a list of ``(indptr, col_indices, data, row_offset)``; chunk rows
-    land at ``out[row_offset : row_offset + rows]``.  Returns numpy
-    ``(indices, values)`` of shape ``(rows_padded, capacity)``.  numpy
-    counterpart of the reference's native ``pack_ell_chunks``
-    (``sctools_tpu/native/__init__.py``), with the same output."""
+def pack_ell_chunks_plain(chunks, rows_padded, capacity, sentinel):
+    """The native :func:`pack_ell_chunks` in numpy, one chunk after
+    another: its plain version, which the tests hold to it, and its path
+    for data other than float32.  Same arguments and output."""
     dtype = (np.asarray(chunks[0][2]).dtype if chunks else np.float32)
     out_idx = np.full((rows_padded, capacity), sentinel, dtype=np.int32)
     out_val = np.zeros((rows_padded, capacity), dtype=dtype)
@@ -216,8 +217,9 @@ def pack_ell_chunks(chunks, rows_padded, capacity, sentinel):
             raise ValueError(
                 f"capacity={capacity} < max nnz/row="
                 f"{int(np.diff(indptr).max())}; refusing to drop counts")
-        idx, val = pack_ell(indptr, np.asarray(col_indices, np.int32),
-                            np.asarray(data), rows, capacity, sentinel)
+        idx, val = pack_ell_plain(indptr, np.asarray(col_indices, np.int32),
+                                  np.asarray(data), rows, capacity,
+                                  sentinel)
         out_idx[row0: row0 + rows] = idx
         out_val[row0: row0 + rows] = val
     return out_idx, out_val

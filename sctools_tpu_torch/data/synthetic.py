@@ -1,11 +1,12 @@
 """Synthetic single-cell data for tests and the chip smoke run.
 
 numpy-only copies of ``sctools_tpu/data/synthetic.py``'s
-``synthetic_counts``, ``gaussian_blobs`` and ``_cluster_cdfs``: the
-same seed gives the same counts, points and gene-program CDFs in both
-packages.  ``DeviceSyntheticSource`` generates padded-ELL shards on the
-device from a ``torch.Generator``; its random bits differ from the
-reference's ``jax.random`` ones, its structure does not.
+``synthetic_counts``, ``gaussian_blobs``, ``synthetic_ell`` and
+``_cluster_cdfs``: the same seed gives the same counts, points, ELL
+planes and gene-program CDFs in both packages.
+``DeviceSyntheticSource`` generates padded-ELL shards on the device from
+a ``torch.Generator``; its random bits differ from the reference's
+``jax.random`` ones, its structure does not.
 """
 
 from __future__ import annotations
@@ -87,6 +88,51 @@ def gaussian_blobs(n_points: int, dim: int, n_clusters: int = 5, *,
     pts = centers[labels] + spread * rng.normal(
         size=(n_points, dim)).astype(dtype)
     return pts.astype(dtype), labels.astype(np.int32)
+
+
+def synthetic_ell(n_cells: int, n_genes: int, *, nnz_per_cell: int = 600,
+                  n_clusters: int = 8, seed: int = 0,
+                  rows_padded: int | None = None,
+                  capacity: int | None = None, dtype=np.float32) -> dict:
+    """Benchmark-scale generator that writes the padded-ELL planes
+    directly (no COO/CSR assembly, no global sort).  A cell may hold one
+    gene id twice (harmless for linear ops: the counts add).  Returns a
+    dict of numpy ``indices``, ``data``, ``labels`` and the ints
+    ``n_cells``, ``n_genes``."""
+    rng = np.random.default_rng(seed)
+    capacity = capacity or round_up(int(nnz_per_cell * 2),
+                                    config.capacity_multiple)
+    rows_padded = rows_padded or round_up(n_cells, config.sublane)
+
+    base = rng.lognormal(mean=0.0, sigma=1.5, size=n_genes)
+    programs = np.tile(base, (n_clusters, 1))
+    for c in range(1, n_clusters):
+        boost = rng.choice(n_genes, size=max(1, n_genes // 20), replace=False)
+        programs[c, boost] *= rng.uniform(3.0, 10.0, size=len(boost))
+    programs /= programs.sum(axis=1, keepdims=True)
+    cdfs = np.cumsum(programs, axis=1)
+    labels = rng.integers(0, n_clusters, size=n_cells).astype(np.int32)
+
+    lib = rng.lognormal(mean=0.0, sigma=0.4, size=n_cells)
+    nnz = np.clip(rng.poisson(nnz_per_cell * lib), 1,
+                  capacity).astype(np.int64)
+
+    indices = np.full((rows_padded, capacity), n_genes, dtype=np.int32)
+    data = np.zeros((rows_padded, capacity), dtype=dtype)
+    total = int(nnz.sum())
+    row_of = np.repeat(np.arange(n_cells), nnz)
+    slot_of = np.arange(total) - np.repeat(np.cumsum(nnz) - nnz, nnz)
+    u = rng.random(total)
+    gene_idx = np.empty(total, dtype=np.int32)
+    draw_cluster = labels[row_of]
+    for c in range(n_clusters):
+        sel = draw_cluster == c
+        gene_idx[sel] = np.searchsorted(cdfs[c], u[sel])
+    np.clip(gene_idx, 0, n_genes - 1, out=gene_idx)
+    indices[row_of, slot_of] = gene_idx
+    data[row_of, slot_of] = rng.geometric(0.4, size=total).astype(dtype)
+    return dict(indices=indices, data=data, n_cells=n_cells,
+                n_genes=n_genes, labels=labels)
 
 
 def _cluster_cdfs(n_genes: int, n_clusters: int, seed: int) -> np.ndarray:
